@@ -1,0 +1,187 @@
+"""PyTorch port vs the JAX package: key-sorted sparse tensors, stage
+plans (active sets + z-window rulebooks), densify, dense stage ops and
+the BEV collapse. All integer outputs must be exactly equal."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vision3d_tpu.core.voxelize import mean_vfe as j_mean_vfe
+from vision3d_tpu.core.voxelize import voxelize_batch as j_voxelize_batch
+from vision3d_tpu.models import sparse_cnn as jscnn
+from vision3d_tpu.ops import sparse as jsp
+from vision3d_tpu_torch.models import sparse_cnn as tscnn
+from vision3d_tpu_torch.ops import sparse as tsp
+
+from torch_parity import sorted_key_sets, uniform_points
+
+STAGES = [  # SpMiddleFHD's strided convs: kernel, stride, pad
+    ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
+    ((3, 3, 3), (2, 2, 2), (0, 1, 1)),   # k3s2p0 in z: the pad clamp
+    ((3, 1, 1), (2, 1, 1), (0, 0, 0)),
+]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _tiny_sparse(tiny_cfg, n_points=420, seed=0):
+    """Voxelizer output of the tiny config, key-sorted (JAX side)."""
+    pts, num = uniform_points(tiny_cfg, np.random.default_rng(seed), 2, n_points)
+    vox = j_voxelize_batch(jnp.asarray(pts), jnp.asarray(num), tiny_cfg)
+    feats = j_mean_vfe(vox["features"], vox["occupancy"])
+    return feats, vox["coords"], vox["voxel_mask"]
+
+
+def test_make_sorted_equal(tiny_cfg):
+    feats, coords, mask = _tiny_sparse(tiny_cfg, n_points=900)
+    grid = tiny_cfg.grid_shape_zyx
+    ref = jax.vmap(lambda f, c, m: jsp.make_sorted(f, c, m, grid))(feats, coords, mask)
+    got = tsp.make_sorted(_t(feats), _t(coords), _t(mask), grid)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _compare_plan(keys, mask, grid, spec, out_cap, subm, **jax_kw):
+    k, s, p = spec
+    plan = jax.jit(lambda kk, mm: jsp.plan_stage_batched(
+        kk, mm, grid, k, s, p, out_cap, subm_kernel=subm, **jax_kw))
+    ref = plan(jnp.asarray(keys), jnp.asarray(mask))
+    got = tsp.plan_stage_batched(_t(keys), _t(mask), grid, k, s, p, out_cap,
+                                 subm_kernel=subm)
+    if subm is None:
+        assert got[0] is None and ref[0] is None
+    else:
+        for r, g in zip(ref[0], got[0]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    for r, g in zip(ref[1], got[1]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    for r, g in zip(ref[2:], got[2:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    return got
+
+
+def test_plan_tiny_z_chain(tiny_cfg):
+    """The whole 41 -> 21 -> 11 -> 5 -> 2 chain of the tiny config, each
+    stage planned on the previous stage's active set; the third stage is
+    the k3s2p0 pad clamp."""
+    feats, coords, mask = _tiny_sparse(tiny_cfg)
+    grid = tiny_cfg.grid_shape_zyx
+    _, keys, mask = jax.vmap(lambda f, c, m: jsp.make_sorted(f, c, m, grid))(
+        feats, coords, mask)
+    keys, mask = np.asarray(keys), np.asarray(mask)
+    for si, spec in enumerate(STAGES):
+        subm = (3, 3, 3) if si < 3 else None
+        got = _compare_plan(keys, mask, grid, spec,
+                            tiny_cfg.stage_voxel_capacity(si + 1), subm)
+        assert int(got[4].sum()) == 0
+        keys, mask = got[2].numpy(), got[3].numpy()
+        grid = tsp.out_grid_shape(grid, *spec)
+    assert grid[0] == 2
+
+
+def test_plan_capacity_truncation(tiny_cfg):
+    """out_cap below the dilated active set: the lowest keys are kept and
+    the drop count equals JAX's."""
+    rng = np.random.default_rng(4)
+    grid = (21, 32, 32)
+    keys, mask = sorted_key_sets(rng, grid, 3, 700, 450, 690)
+    got = _compare_plan(keys, mask, grid, STAGES[1], 300, (3, 3, 3))
+    assert (got[4].numpy() > 0).all()
+
+
+def test_plan_cached_branch_big_bev():
+    """A grid whose BEV exceeds DENSE_SHIFT_MAX_BEV_CELLS, so the JAX plan
+    takes its column-cache branch (the branch stage 0 of KITTI takes)."""
+    grid = (41, 1000, 1010)
+    assert grid[1] * grid[2] > jsp.DENSE_SHIFT_MAX_BEV_CELLS
+    rng = np.random.default_rng(7)
+    d, h, w = grid
+    keys, mask = [], []
+    n = 1600
+    for nact in (1200, 1550):
+        # clustered columns (neighbours exist) with a few z each
+        cy = rng.integers(100, 140, nact)
+        cx = rng.integers(500, 540, nact)
+        z = rng.integers(0, d, nact)
+        k = np.unique((cy * w + cx) * d + z).astype(np.int32)
+        keys.append(np.concatenate([k, np.full(n - len(k), d * h * w, np.int32)]))
+        mask.append(np.arange(n) < len(k))
+    keys, mask = np.stack(keys), np.stack(mask)
+    _compare_plan(keys, mask, grid, STAGES[0], 4000, (3, 3, 3),
+                  subm_col_cap=1600, down_col_cap=4000)
+
+
+def _densify_input(rng, c=16):
+    grid = (11, 20, 18)
+    keys, mask = sorted_key_sets(rng, grid, 3, 500, 300, 480)
+    feats = rng.normal(size=(3, 500, c)).astype(np.float32) * mask[..., None]
+    return grid, keys, mask, feats
+
+
+@pytest.mark.parametrize("ncol_cap", [500, 120])
+def test_dense_from_sparse_cols(ncol_cap):
+    """Values, occupancy and the column-cap drop count (120 truncates)."""
+    grid, keys, mask, feats = _densify_input(np.random.default_rng(2))
+    st = jscnn.SparseTensor(feats=jnp.asarray(feats), keys=jnp.asarray(keys),
+                            mask=jnp.asarray(mask), grid=grid)
+    ref, rdrop = jscnn.dense_from_sparse_cols(st, keep_keys=False, ncol_cap=ncol_cap)
+    got, gdrop = tscnn.dense_from_sparse_cols(
+        tscnn.SparseTensor(_t(feats), _t(keys), _t(mask), grid), ncol_cap)
+    np.testing.assert_array_equal(gdrop.numpy(), np.asarray(rdrop))
+    assert (gdrop.numpy() > 0).any() == (ncol_cap < 300)
+    np.testing.assert_array_equal(got.occ.numpy(), np.asarray(ref.occ))
+    # JAX keeps the densify gather's (B, H, W, D, C) order (hwdc)
+    np.testing.assert_array_equal(got.feats.permute(0, 3, 4, 2, 1).numpy(),
+                                  np.asarray(ref.feats))
+
+
+@pytest.mark.parametrize("hwdc", [True, False])
+def test_to_bev_both_jax_layouts(hwdc):
+    """to_bev's c-major (C, D) channel order, held against JAX's hwdc and
+    z-major DenseTensor (the hwdc branch has no test in the JAX package)."""
+    rng = np.random.default_rng(9)
+    b, c, d, h, w = 2, 8, 3, 6, 5
+    feats = rng.normal(size=(b, c, d, h, w)).astype(np.float32)
+    occ = rng.uniform(size=(b, d, h, w)) > 0.5
+    zmajor = np.transpose(feats, (0, 2, 3, 4, 1))
+    jf = np.transpose(feats, (0, 3, 4, 2, 1)) if hwdc else zmajor
+    ref = jscnn.to_bev(jscnn.DenseTensor(feats=jnp.asarray(jf), occ=jnp.asarray(occ),
+                                         grid=(d, h, w), hwdc=hwdc))
+    got = tscnn.to_bev(tscnn.DenseTensor(_t(feats), _t(occ), (d, h, w)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_to_bev_sparse_input():
+    """A stage left sparse (dense_from_stage = 4) collapses the same way."""
+    grid, keys, mask, feats = _densify_input(np.random.default_rng(6), c=8)
+    ref = jscnn.to_bev(jscnn.SparseTensor(feats=jnp.asarray(feats), keys=jnp.asarray(keys),
+                                          mask=jnp.asarray(mask), grid=grid))
+    got = tscnn.to_bev(tscnn.SparseTensor(_t(feats), _t(keys), _t(mask), grid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("spec", [((3, 3, 3), (1, 1, 1), (1, 1, 1))] + STAGES[2:])
+def test_dense_conv_and_dilation(spec):
+    """conv3d with the shared (K*Cin, Cout) weight layout and the strided
+    active-set dilation, f32. Tolerance: two libraries' f32 convs sum 27*8
+    products in different orders (~1e-6 relative)."""
+    kernel, stride, pad = spec
+    rng = np.random.default_rng(1)
+    b, cin, cout, grid = 2, 8, 6, (7, 10, 9)
+    x = rng.normal(size=(b, cin) + grid).astype(np.float32)
+    occ = rng.uniform(size=(b,) + grid) > 0.7
+    kv = int(np.prod(kernel))
+    wgt = rng.normal(size=(kv * cin, cout)).astype(np.float32)
+    ref = jscnn._dense_conv(jnp.asarray(np.transpose(x, (0, 2, 3, 4, 1))),
+                            jnp.asarray(wgt), kernel, stride, pad, jnp.float32)
+    got = tscnn._dense_conv(_t(x), _t(wgt), kernel, stride, pad, torch.float32)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 4, 1).numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        tscnn.dense_dilate_occ(_t(occ), kernel, stride, pad).numpy(),
+        np.asarray(jscnn.dense_dilate_occ(jnp.asarray(occ), kernel, stride, pad)))

@@ -1,0 +1,45 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+a JAX Config turned into the port's Config, and seeded numpy inputs."""
+
+import dataclasses
+
+import numpy as np
+
+from vision3d_tpu_torch import config as tconfig
+
+
+def port_cfg(cfg):
+    """The port's Config with every field of a vision3d_tpu Config."""
+    d = dataclasses.asdict(cfg)
+    anchors = tuple(tconfig.AnchorConfig(**a) for a in d.pop("anchors"))
+    subs = dict(psa=tconfig.PSAConfig, gridpool=tconfig.GridPoolConfig,
+                proposal=tconfig.ProposalConfig,
+                refinement=tconfig.RefinementConfig, data=tconfig.DataConfig,
+                train=tconfig.TrainConfig, aug=tconfig.AugConfig,
+                capacity=tconfig.CapacityConfig)
+    for name, cls in subs.items():
+        d[name] = cls(**d[name])
+    return tconfig.Config(anchors=anchors, **d)
+
+
+def uniform_points(cfg, rng, batch, n):
+    """(batch, n, 4) float32 points uniform over the grid bounds."""
+    lo = np.asarray(cfg.grid_bounds[:3])
+    hi = np.asarray(cfg.grid_bounds[3:])
+    pts = rng.uniform(lo, hi, (batch, n, 3))
+    inten = rng.uniform(0, 1, (batch, n, 1))
+    return (np.concatenate([pts, inten], -1).astype(np.float32),
+            np.full((batch,), n, np.int32))
+
+
+def sorted_key_sets(rng, grid, batch, n, lo, hi):
+    """Random sorted active key sets: (keys (B, N) int32 sentinel-padded,
+    mask (B, N)), each sample with between lo and hi active voxels."""
+    d, h, w = grid
+    keys, mask = [], []
+    for _ in range(batch):
+        nact = int(rng.integers(lo, hi))
+        k = np.sort(rng.choice(d * h * w, nact, replace=False)).astype(np.int32)
+        keys.append(np.concatenate([k, np.full(n - nact, d * h * w, np.int32)]))
+        mask.append(np.arange(n) < nact)
+    return np.stack(keys), np.stack(mask)

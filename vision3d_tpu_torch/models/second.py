@@ -1,0 +1,69 @@
+"""SECOND one-stage voxel detector, inference (port of
+``vision3d_tpu/models/second.py``).
+
+points -> voxelize + mean VFE -> key-sorted sparse tensor -> SpMiddleFHD
+-> BEV -> RPN -> proposal head; ``inference`` also decodes against the
+anchor grid and runs rotated NMS. The capacity diagnostics the JAX model
+sows (``voxelizer_dropped``, ``stage1_dropped``, ``stage2_dropped``,
+``stage2_densify_dropped``) are returned as a dict of 0-d int tensors
+next to the outputs; nothing here synchronises with the device.
+"""
+
+import torch
+from torch import nn
+
+from vision3d_tpu_torch.config import Config
+from vision3d_tpu_torch.core.anchors import make_anchors
+from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch
+from vision3d_tpu_torch.models.head import Detections, ProposalHead, head_inference
+from vision3d_tpu_torch.models.rpn import RPN
+from vision3d_tpu_torch.models.sparse_cnn import SpMiddleFHD, from_voxels
+
+
+class Second(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        if cfg.cnn != "SpMiddleFHD" or cfg.sparse_backend != "voxel":
+            raise NotImplementedError(
+                "the port runs SpMiddleFHD on the voxel backend only "
+                f"(got cnn={cfg.cnn}, sparse_backend={cfg.sparse_backend})")
+        self.cfg = cfg
+        self.cnn = SpMiddleFHD(cfg)
+        c = cfg.proposal.c_in
+        self.rpn = RPN(c_in=c, c_down=c, c_up=c)
+        self.head = ProposalHead(cfg)
+
+    def forward(self, points, num_points):
+        """points (B, P, C), num_points (B,) -> (cls_map, reg_map, diag)."""
+        cfg = self.cfg
+        vox = voxelize_batch(points, num_points, cfg)
+        diag = {"voxelizer_dropped":
+                (vox["num_voxels_total"] - vox["num_voxels"]).sum()}
+        feats = mean_vfe(vox["features"], vox["occupancy"])
+        st = from_voxels(feats, vox["coords"], vox["voxel_mask"],
+                         cfg.grid_shape_zyx)
+        bev, cnn_diag = self.cnn(st)
+        diag.update({k: v.sum() for k, v in cnn_diag.items()})
+        x = self.rpn(bev.permute(0, 3, 1, 2).float())
+        cls_map, reg_map = self.head(x)
+        return cls_map, reg_map, diag
+
+    def inference(self, points, num_points, anchors):
+        """Points in, NMS-filtered fixed-capacity boxes out.
+        Returns (Detections, diagnostics)."""
+        cls_map, reg_map, diag = self(points, num_points)
+        return head_inference(cls_map, reg_map, anchors, self.cfg), diag
+
+
+def create_second(cfg: Config, device="cuda", state_dict=None):
+    """Build an eval-mode Second on ``device`` and its anchor tensor;
+    ``state_dict`` (from ``convert.py``) loads weights, strictly."""
+    model = Second(cfg)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model = model.to(device).eval()
+    anchors = torch.as_tensor(make_anchors(cfg), device=device)
+    return model, anchors
+
+
+__all__ = ["Detections", "Second", "create_second"]

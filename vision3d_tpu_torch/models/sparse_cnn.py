@@ -1,0 +1,247 @@
+"""SpMiddleFHD sparse middle extractor, inference (port of the voxel and
+dense branches of ``vision3d_tpu/models/sparse_cnn.py``).
+
+Four blocks of submanifold + strided convs take voxel features at grid
+(41, 1600, 1408) ZYX down to (2, 200, 176), then collapse z into a
+(ny, nx, C*D) BEV map; channels 4 -> 16 -> 32 -> 64 -> 64, BN eps 1e-3.
+Stages before ``cfg.dense_from_stage`` run sparse (key-sorted tensors,
+z-window rulebooks, the ``zwin_conv`` CUDA kernel); later stages run as
+dense masked volumes with cuDNN conv3d, exact spconv semantics recovered
+by masking to the active set.
+
+Layouts: a ``SparseTensor`` is (B, N, C); a ``DenseTensor`` holds feats
+as (B, C, D, H, W) in channels-last-3d memory (cuDNN's preferred layout;
+the JAX package's hwdc/z-major choice was a TPU tactic) and occupancy as
+(B, D, H, W). Weights keep the JAX layout (K*Cin, Cout),
+K = (dz*ky + dy)*kx + dx.
+"""
+
+from dataclasses import dataclass, replace
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vision3d_tpu_torch.config import Config
+from vision3d_tpu_torch.ops import sparse as sp
+from vision3d_tpu_torch.ops.zwin_conv import zwin_conv
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class SparseTensor:
+    feats: torch.Tensor  # (B, N, C)
+    keys: torch.Tensor   # (B, N) int32, sorted, sentinel-padded
+    mask: torch.Tensor   # (B, N) bool
+    grid: tuple
+
+
+@dataclass
+class DenseTensor:
+    feats: torch.Tensor  # (B, C, D, H, W), channels-last-3d memory
+    occ: torch.Tensor    # (B, D, H, W) bool: the exact spconv active set
+    grid: tuple
+
+
+def from_voxels(feats, coords, mask, grid) -> SparseTensor:
+    f, k, m = sp.make_sorted(feats, coords, mask, grid)
+    return SparseTensor(feats=f, keys=k, mask=m, grid=grid)
+
+
+def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int):
+    """Densify a sparse tensor, keeping at most ``ncol_cap`` active BEV
+    columns per sample (the lowest column keys, as
+    ``vision3d_tpu.ops.sparse.build_col_compact`` keeps them).
+
+    Returns (DenseTensor, ncol_dropped (B,) int32). Sites of dropped
+    columns are absent from the dense volume; callers surface the count.
+    """
+    d, h, w = st.grid
+    b, n, c = st.feats.shape
+    dev = st.feats.device
+    cell = st.keys // d
+    first = st.mask.clone()
+    first[:, 1:] &= cell[:, 1:] != cell[:, :-1]
+    colslot = first.to(torch.int32).cumsum(dim=1) - 1
+    ncol_dropped = (first.sum(dim=1) - ncol_cap).clamp(min=0).to(torch.int32)
+    keep = st.mask & (colslot < ncol_cap)
+    z = st.keys % d
+    total = b * d * h * w
+    bidx = torch.arange(b, device=dev)[:, None]
+    # z-major raster (b, z, y, x): unique per kept site, drop row at total
+    flat = torch.where(keep, (bidx * d + z) * (h * w) + torch.where(keep, cell, 0),
+                       total).reshape(-1)
+    dense = torch.zeros((total + 1, c), dtype=st.feats.dtype, device=dev)
+    dense[flat] = st.feats.reshape(-1, c)
+    occ = torch.zeros((total + 1,), dtype=torch.bool, device=dev)
+    occ[flat] = True
+    feats = dense[:total].reshape(b, d, h, w, c).permute(0, 4, 1, 2, 3)
+    occ = occ[:total].reshape(b, d, h, w)
+    return DenseTensor(feats=feats, occ=occ, grid=st.grid), ncol_dropped
+
+
+def dense_dilate_occ(occ, kernel, stride, pad):
+    """spconv strided-conv active set: any active input in the window."""
+    x = occ[:, None].to(torch.float32)
+    return F.max_pool3d(x, kernel, stride, pad)[:, 0] > 0
+
+
+def _conv3d_weight(weight, kernel):
+    """(K*Cin, Cout) -> (Cout, Cin, kz, ky, kx)."""
+    kz, ky, kx = kernel
+    cin = weight.shape[0] // (kz * ky * kx)
+    return weight.reshape(kz, ky, kx, cin, weight.shape[1]).permute(4, 3, 0, 1, 2)
+
+
+def _dense_conv(x, weight, kernel, stride, pad, cdt):
+    """conv3d (cross-correlation, as JAX's conv_general_dilated) in the
+    compute dtype; the result is returned as float32."""
+    wk = _conv3d_weight(weight, kernel).to(cdt).contiguous(
+        memory_format=torch.channels_last_3d)
+    return F.conv3d(x.to(cdt), wk, stride=stride, padding=pad).float()
+
+
+class MaskedBatchNorm(nn.Module):
+    """Eval-mode batch norm over the channel axis that zeroes masked-off
+    rows (torch BatchNorm semantics, eps 1e-3). Parameters use torch's
+    names; ``convert.py`` maps flax's scale/bias/mean/var onto them."""
+
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x, mask, channel_dim=-1):
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        y = ((x - self.running_mean.view(shape))
+             * torch.rsqrt(self.running_var.view(shape) + self.eps)
+             * self.weight.view(shape) + self.bias.view(shape))
+        return torch.where(mask.unsqueeze(channel_dim), y, 0.0)
+
+
+class SubMConv(nn.Module):
+    """Submanifold conv: output sites == input sites."""
+
+    def __init__(self, cin: int, cout: int, dtype: str = "float32"):
+        super().__init__()
+        self.kernel = (3, 3, 3)
+        self.cdt = _DTYPES[dtype]
+        self.weight = nn.Parameter(torch.zeros(27 * cin, cout))
+        self.bn = MaskedBatchNorm(cout)
+
+    def forward(self, x, rb=None):
+        if isinstance(x, DenseTensor):
+            out = _dense_conv(x.feats, self.weight, self.kernel, (1, 1, 1),
+                              (1, 1, 1), self.cdt)
+            out = self.bn(out, x.occ, channel_dim=1)
+            out = torch.where(x.occ[:, None], F.relu(out), 0.0).to(self.cdt)
+            return replace(x, feats=out)
+        out = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
+                        self.cdt)
+        out = self.bn(out, x.mask)
+        return replace(x, feats=torch.where(x.mask[..., None], F.relu(out), 0.0))
+
+
+class SparseConvDown(nn.Module):
+    """Strided conv: a new, coarser active set."""
+
+    def __init__(self, cin, cout, kernel, stride, pad, out_cap,
+                 dtype="float32"):
+        super().__init__()
+        self.kernel, self.stride, self.pad = kernel, stride, pad
+        self.out_cap = out_cap
+        self.cdt = _DTYPES[dtype]
+        kv = kernel[0] * kernel[1] * kernel[2]
+        self.weight = nn.Parameter(torch.zeros(kv * cin, cout))
+        self.bn = MaskedBatchNorm(cout)
+
+    def forward(self, x, plan=None):
+        out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
+        if isinstance(x, DenseTensor):
+            of = _dense_conv(x.feats, self.weight, self.kernel, self.stride,
+                             self.pad, self.cdt)
+            oz = dense_dilate_occ(x.occ, self.kernel, self.stride, self.pad)
+            of = self.bn(of, oz, channel_dim=1)
+            of = torch.where(oz[:, None], F.relu(of), 0.0).to(self.cdt)
+            return DenseTensor(feats=of, occ=oz, grid=out_grid)
+        rb, ok, om = plan
+        of = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
+                       self.cdt)
+        of = self.bn(of, om)
+        of = torch.where(om[..., None], F.relu(of), 0.0)
+        return SparseTensor(feats=of, keys=ok, mask=om, grid=out_grid)
+
+
+def to_bev(x) -> torch.Tensor:
+    """Collapse z: -> dense BEV (B, H, W, C*D), channels c-major over
+    (C, D) as the reference's ``view(N, C*D, H, W)``. The result is an
+    NHWC view of an NCHW-contiguous map (``.permute(0, 3, 1, 2)`` is free)."""
+    if isinstance(x, SparseTensor):
+        x, _ = dense_from_sparse_cols(x, x.keys.shape[1])
+    b, c, d, h, w = x.feats.shape
+    f = torch.where(x.occ[:, None], x.feats, 0.0)
+    return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
+
+
+class SpMiddleFHD(nn.Module):
+    """Reference channel plan: per block 2-3 subm convs then a strided
+    conv; 4 -> 16 -> 32 -> 64 -> 64."""
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.compute_dtype
+        subm, down = [], []
+        cin = cfg.c_in
+        for si, (chans, spec) in enumerate(self.block_specs()):
+            for ch in chans:
+                subm.append(SubMConv(cin, ch, dt))
+                cin = ch
+            down.append(SparseConvDown(cin, spec["features"], spec["kernel"],
+                                       spec["stride"], spec["pad"],
+                                       spec["out_cap"], dt))
+            cin = spec["features"]
+        self.subm = nn.ModuleList(subm)
+        self.down = nn.ModuleList(down)
+
+    def block_specs(self):
+        c = self.cfg
+        return [
+            ([16, 16], dict(features=32, kernel=(3, 3, 3), stride=(2, 2, 2),
+                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(1))),
+            ([32, 32], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
+                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(2))),
+            ([64, 64, 64], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
+                                pad=(0, 1, 1), out_cap=c.stage_voxel_capacity(3))),
+            ([64, 64, 64], dict(features=64, kernel=(3, 1, 1), stride=(2, 1, 1),
+                                pad=(0, 0, 0), out_cap=c.stage_voxel_capacity(4))),
+        ]
+
+    def forward(self, st: SparseTensor):
+        """Returns (bev (B, H, W, C*D), diagnostics {name: (B,) int32})."""
+        diag = {}
+        x = st
+        li = 0
+        for si, (chans, spec) in enumerate(self.block_specs()):
+            if si >= self.cfg.dense_from_stage and isinstance(x, SparseTensor):
+                x, cdrop = dense_from_sparse_cols(
+                    x, self.cfg.stage_column_capacity(si))
+                diag[f"stage{si}_densify_dropped"] = cdrop
+            rb = plan = None
+            if isinstance(x, SparseTensor):
+                rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
+                    x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
+                    spec["pad"], spec["out_cap"],
+                    subm_kernel=(3, 3, 3) if chans else None)
+                plan = (rbd, ok, om)
+                diag[f"stage{si + 1}_dropped"] = ndrop
+            for _ in chans:
+                x = self.subm[li](x, rb)
+                li += 1
+            x = self.down[si](x, plan)
+        return to_bev(x), diag
