@@ -38,7 +38,7 @@ GOLD = ROOT / "tests" / "goldens"
 
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port (and chip_smoke.py) must load no
-    jax, flax, orbax or vision3d_tpu module."""
+    jax, flax, optax, orbax or vision3d_tpu module."""
     mods = sorted(
         "vision3d_tpu_torch." + ".".join(p.relative_to(ROOT / "vision3d_tpu_torch")
                                          .with_suffix("").parts)
@@ -48,12 +48,15 @@ def test_port_imports_nothing_of_jax():
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'vision3d_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vision3d_tpu'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 23
+    for new in ("core.targets", "models.losses", "ops.gather_gemm", "ops.gather_rows",
+                "training.train", "training.checkpoint", "training.metrics"):
+        assert "vision3d_tpu_torch." + new in mods
 
 
 @pytest.mark.parametrize("name", ["all_classes", "car", "car_cpu_small", "car_tiny"])

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA device and skips without one. This
+"""The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows) against
+their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -11,6 +11,8 @@ import torch
 
 from vision3d_tpu_torch.ops import sparse as tsp
 from vision3d_tpu_torch.ops import zwin_conv as tzw
+from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
+from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 
 pytestmark = pytest.mark.cuda
 COUT = {4: 16, 16: 32, 32: 64}
@@ -59,3 +61,119 @@ def test_zwin_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         tzw.zwin_conv(feats.transpose(1, 2).contiguous().transpose(1, 2),
                       start, pattern, w)
+
+
+def _gg_case(c, cout, kd, seed, dev, b=2, n=300, m=700):
+    """Random full-tap rulebook: rows in [0, N], N (a miss) most often."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(b, n, c)).astype(np.float32)
+    rb = rng.integers(0, n + 1, (b, m * kd)).astype(np.int32)
+    rb[rng.uniform(size=rb.shape) < 0.6] = n
+    w = (rng.normal(size=(kd * c, cout)) / np.sqrt(kd * c)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (feats, rb, w)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,kd", [(4, 16, 27), (16, 16, 27), (16, 32, 27),
+                                       (32, 16, 27), (64, 32, 27), (64, 64, 27),
+                                       (64, 64, 3), (16, 4, 27)])
+def test_gather_gemm_kernel_matches_plain(c, cout, kd, dtype, cuda_device):
+    """Forward and dX widths of the training path, K = 27 and 3. Both sum
+    exact products of compute-dtype inputs in float32, in other orders:
+    1e-5 of the output scale."""
+    feats, rb, w = _gg_case(c, cout, kd, c + cout, cuda_device)
+    before = tzw.LAUNCHES["gather_gemm"]
+    got = gather_gemm(feats, rb, w, dtype)
+    torch.cuda.synchronize()
+    assert tzw.LAUNCHES["gather_gemm"] == before + 1
+    ref = tsp.conv_rulebook_apply(feats, rb, w, dtype)
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+
+
+def test_gather_gemm_kernel_treats_out_of_range_rows_as_misses(cuda_device):
+    feats, rb, w = _gg_case(16, 32, 27, 9, cuda_device)
+    n = feats.shape[1]
+    ref = gather_gemm(feats, rb, w)
+    wild = torch.where(rb == n, torch.full_like(rb, -1), rb)
+    wild[0, ::7] = torch.where(wild[0, ::7] < 0, n + 5, wild[0, ::7])
+    torch.testing.assert_close(gather_gemm(feats, wild, w), ref, atol=0, rtol=0)
+
+
+def test_gather_gemm_kernel_rejects_bad_input(cuda_device):
+    feats, rb, w = _gg_case(16, 32, 27, 4, cuda_device)
+    with pytest.raises(TypeError):
+        gather_gemm(feats, rb.long(), w)
+    with pytest.raises(TypeError):
+        gather_gemm(feats, rb, w, torch.float16)
+    with pytest.raises(ValueError):
+        gather_gemm(feats, rb, w[:-1])
+    with pytest.raises(ValueError):
+        gather_gemm(feats, rb, w[:, :24])          # Cout 24 has no instance
+    with pytest.raises(ValueError):
+        gather_gemm(feats, rb.cpu(), w)
+    with pytest.raises(ValueError):
+        gather_gemm(feats.transpose(1, 2).contiguous().transpose(1, 2), rb, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [4, 16, 32, 64, 5])
+def test_gather_rows_kernel_matches_plain(c, dtype, cuda_device):
+    """A copy: exactly equal, at every row width of the path (8 to 256
+    bytes), an odd width, any Q, and from a base that is only row-aligned."""
+    rng = np.random.default_rng(c)
+    table = torch.from_numpy(rng.normal(size=(501, c)).astype(np.float32)).to(
+        cuda_device).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, 500, (10007,)).astype(np.int32)).to(cuda_device)
+    before = tzw.LAUNCHES["gather_rows"]
+    for tab in (table, table[1:]):
+        got = gather_rows(tab, idx)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got, gather_rows_plain(tab, idx))
+        assert torch.equal(got, torch.index_select(tab, 0, idx))
+    assert tzw.LAUNCHES["gather_rows"] == before + 2
+    assert gather_rows(table, idx[:0]).shape == (0, c)
+
+
+def test_gather_rows_kernel_rejects_bad_input(cuda_device):
+    table = torch.zeros((10, 8), device=cuda_device)
+    idx = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gather_rows(table, idx.long())
+    with pytest.raises(TypeError):
+        gather_rows(table.half(), idx)
+    with pytest.raises(ValueError):
+        gather_rows(table.T, idx)
+    with pytest.raises(ValueError):
+        gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError):
+        gather_rows(table[None], idx)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_conv_fn_gradients_card_vs_cpu(dtype, tol, cuda_device):
+    """SubmConvFn / DownConvFn on the card (kernels) against the CPU (plain
+    versions) on a real plan: outputs, dX and dW."""
+    rng = np.random.default_rng(0)
+    grid = (11, 20, 18)
+    d, h, w_ = grid
+    keys = np.stack([np.sort(rng.choice(d * h * w_, 400, replace=False)).astype(np.int32)
+                     for _ in range(2)])
+    mask = np.ones((2, 400), bool)
+    plan = tsp.plan_stage_train_batched(torch.from_numpy(keys), torch.from_numpy(mask),
+                                        grid, (3, 3, 3), (2, 2, 2), (0, 1, 1), 600,
+                                        subm_kernel=(3, 3, 3))
+    rbs, rbd, rbt = plan[:3]
+    x = torch.from_numpy(rng.normal(size=(2, 400, 16)).astype(np.float32))
+    w1 = torch.from_numpy((rng.normal(size=(27 * 16, 16)) / 20).astype(np.float32))
+    w2 = torch.from_numpy((rng.normal(size=(27 * 16, 32)) / 20).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(2, 600, 32)).astype(np.float32))
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        xs, a, b = (t.to(dev).requires_grad_() for t in (x, w1, w2))
+        y = tsp.SubmConvFn.apply(xs, rbs.to(dev), a, dtype)
+        z = tsp.DownConvFn.apply(y, rbd.to(dev), rbt.to(dev), b, dtype)
+        (z * r.to(dev)).sum().backward()
+        res.append([t.detach().cpu() for t in (z, xs.grad, a.grad, b.grad)])
+    for got, ref in zip(*res):
+        torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=tol)

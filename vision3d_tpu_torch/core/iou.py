@@ -113,3 +113,19 @@ def rotated_iou(boxes1, boxes2, angle_mode="degrees"):
     union = a1 + a2 - inter
     return torch.where(union > 0, inter / union.clamp(min=_EPS),
                        torch.zeros_like(inter))
+
+
+def pairwise_rotated_iou(boxes1, boxes2, angle_mode="degrees"):
+    """(..., M, 5) x (..., N, 5) -> (..., M, N) IoU matrix; the leading
+    dims broadcast."""
+    return rotated_iou(boxes1[..., :, None, :], boxes2[..., None, :, :],
+                       angle_mode)
+
+
+def pairwise_rotated_iou_chunked(boxes1, boxes2, angle_mode="degrees",
+                                 chunk=4096):
+    """(..., M, N) IoU computed in N-chunks to bound peak memory: the 24
+    candidate points per pair would make an unchunked gt-vs-anchor matrix
+    (N ~ 70k per class) gigabytes wide."""
+    return torch.cat([pairwise_rotated_iou(boxes1, blk, angle_mode)
+                      for blk in boxes2.split(chunk, dim=-2)], dim=-1)

@@ -5,7 +5,9 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so``
 under this package at first use (the hash of the source keeps a stale
 library from being loaded) and bound with ``ctypes``. Nothing is built
 when a module is imported; ``build()`` compiles several kernels at once,
-one ``nvcc`` process each.
+one ``nvcc`` process each. ``launch()`` calls a kernel's
+``<name>_launch`` entry point and raises on a CUDA error; ``LAUNCHES``
+counts the launches of each kernel.
 """
 
 import ctypes
@@ -18,11 +20,18 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-KERNELS = ("zwin_conv",)
+KERNELS = ("zwin_conv", "gather_gemm", "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
+LAUNCHES = {name: 0 for name in KERNELS}
+
 _loaded = {}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -73,3 +82,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, argtypes, *args):
+    """Call ``<name>_launch(*args)`` (a C function that returns the
+    launch's cudaError_t), raise if the launch was refused, and count it."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        err_fn = getattr(lib, f"{name}_error_string")
+        err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())
+    LAUNCHES[name] += 1

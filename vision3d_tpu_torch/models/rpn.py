@@ -4,14 +4,36 @@ One stride-1 3x3 Conv-BN-ReLU plus five more ("down block"), then a 1x1
 Conv-BN-ReLU ("up block"); 128 channels, BN eps 1e-3. NCHW in, NCHW out.
 """
 
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` whose running variance is updated with the
+    BIASED batch variance, as flax's ``nn.BatchNorm`` does (torch uses the
+    unbiased one, n/(n-1) larger). Parameters and state_dict names are
+    torch's. A training forward normalises with the batch statistics
+    through torch's own kernel and makes the running update itself."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return y
 
 
 class ConvBNReLU(nn.Sequential):
     def __init__(self, cin: int, cout: int, kernel: int = 3):
         super().__init__(
             nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
-            nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01),
+            BatchNorm2d(cout, eps=1e-3, momentum=0.01),
             nn.ReLU(inplace=True),
         )
 

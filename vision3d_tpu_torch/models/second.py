@@ -1,13 +1,17 @@
-"""SECOND one-stage voxel detector, inference (port of
-``vision3d_tpu/models/second.py``).
+"""SECOND one-stage voxel detector, inference and training forward (port
+of ``vision3d_tpu/models/second.py``).
 
 points -> voxelize + mean VFE -> key-sorted sparse tensor -> SpMiddleFHD
 -> BEV -> RPN -> proposal head; ``inference`` also decodes against the
 anchor grid and runs rotated NMS. The capacity diagnostics the JAX model
 sows (``voxelizer_dropped``, ``stage1_dropped``, ``stage2_dropped``,
 ``stage2_densify_dropped``) are returned as a dict of 0-d int tensors
-next to the outputs; nothing here synchronises with the device.
+next to the outputs; nothing here synchronises with the device. In
+training mode (``model.train()``) the middle extractor runs fully sparse
+and the counters are ``voxelizer_dropped`` and ``stage{1..4}_dropped``.
 """
+
+import math
 
 import torch
 from torch import nn
@@ -55,9 +59,36 @@ class Second(nn.Module):
         return head_inference(cls_map, reg_map, anchors, self.cfg), diag
 
 
+def init_second(model: Second, generator: torch.Generator):
+    """Fresh weights as the JAX package initialises them, drawn from
+    ``generator`` (a CPU generator; call before moving the model):
+    sparse convs ``variance_scaling(2, fan_out, normal)`` (std
+    sqrt(2/Cout)), RPN convs xavier-normal, head kernels normal(0.01), the
+    cls bias at the focal prior -log((1-p)/p) with p = 0.01
+    (``vision3d_tpu/models/head.py:54-60``); batch norms keep their
+    constructors' scale 1 / bias 0 / mean 0 / var 1. The two frameworks draw different numbers from a seed; only
+    the distributions agree."""
+    with torch.no_grad():
+        for conv in list(model.cnn.subm) + list(model.cnn.down):
+            conv.weight.normal_(0.0, math.sqrt(2.0 / conv.weight.shape[1]),
+                                generator=generator)
+        for block in model.rpn:
+            w = block[0].weight                       # (Cout, Cin, kh, kw)
+            fan = (w.shape[0] + w.shape[1]) * w.shape[2] * w.shape[3]
+            w.normal_(0.0, math.sqrt(2.0 / fan), generator=generator)
+        prior = 0.01
+        model.head.conv_cls.weight.normal_(0.0, 0.01, generator=generator)
+        model.head.conv_cls.bias.fill_(-math.log((1 - prior) / prior))
+        model.head.conv_reg.weight.normal_(0.0, 0.01, generator=generator)
+        model.head.conv_reg.bias.zero_()
+    return model
+
+
 def create_second(cfg: Config, device="cuda", state_dict=None):
     """Build an eval-mode Second on ``device`` and its anchor tensor;
-    ``state_dict`` (from ``convert.py``) loads weights, strictly."""
+    ``state_dict`` (from ``convert.py``) loads weights, strictly. (A model
+    to train, with fresh weights, comes from
+    ``training.train.create_train_state``.)"""
     model = Second(cfg)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -66,4 +97,4 @@ def create_second(cfg: Config, device="cuda", state_dict=None):
     return model, anchors
 
 
-__all__ = ["Detections", "Second", "create_second"]
+__all__ = ["Detections", "Second", "create_second", "init_second"]

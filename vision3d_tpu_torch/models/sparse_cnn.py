@@ -1,5 +1,5 @@
-"""SpMiddleFHD sparse middle extractor, inference (port of the voxel and
-dense branches of ``vision3d_tpu/models/sparse_cnn.py``).
+"""SpMiddleFHD sparse middle extractor (port of the voxel and dense
+branches of ``vision3d_tpu/models/sparse_cnn.py``), inference and training.
 
 Four blocks of submanifold + strided convs take voxel features at grid
 (41, 1600, 1408) ZYX down to (2, 200, 176), then collapse z into a
@@ -7,7 +7,10 @@ Four blocks of submanifold + strided convs take voxel features at grid
 Stages before ``cfg.dense_from_stage`` run sparse (key-sorted tensors,
 z-window rulebooks, the ``zwin_conv`` CUDA kernel); later stages run as
 dense masked volumes with cuDNN conv3d, exact spconv semantics recovered
-by masking to the active set.
+by masking to the active set. In training mode (``module.training``) all
+four stages run sparse on full-tap rulebooks (``cfg.train_dense_from_stage
+= 4``): every conv is the ``gather_gemm`` CUDA kernel, forward and dX, and
+dW regathers its columns with the ``gather_rows`` kernel.
 
 Layouts: a ``SparseTensor`` is (B, N, C); a ``DenseTensor`` holds feats
 as (B, C, D, H, W) in channels-last-3d memory (cuDNN's preferred layout;
@@ -103,13 +106,17 @@ def _dense_conv(x, weight, kernel, stride, pad, cdt):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode batch norm over the channel axis that zeroes masked-off
-    rows (torch BatchNorm semantics, eps 1e-3). Parameters use torch's
-    names; ``convert.py`` maps flax's scale/bias/mean/var onto them."""
+    """Batch norm over the channel axis that ignores and zeroes masked-off
+    rows (eps 1e-3). In training mode the statistics are the masked mean
+    and the BIASED variance of the batch (count clamped to 1), also for
+    the running update, with momentum 0.01 in torch's convention (flax
+    0.99), as ``vision3d_tpu/models/sparse_cnn.py:405-413``. Parameters use
+    torch's names; ``convert.py`` maps flax's scale/bias/mean/var onto them."""
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -118,10 +125,21 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x, mask, channel_dim=-1):
         shape = [1] * x.dim()
         shape[channel_dim] = -1
-        y = ((x - self.running_mean.view(shape))
-             * torch.rsqrt(self.running_var.view(shape) + self.eps)
+        m = mask.unsqueeze(channel_dim)
+        if self.training:
+            axes = [a for a in range(x.dim()) if a != channel_dim % x.dim()]
+            w = m.to(x.dtype)
+            n = w.sum().clamp(min=1.0)
+            mean = (x * w).sum(dim=axes) / n
+            var = ((x - mean.view(shape)).square() * w).sum(dim=axes) / n
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = ((x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
              * self.weight.view(shape) + self.bias.view(shape))
-        return torch.where(mask.unsqueeze(channel_dim), y, 0.0)
+        return torch.where(m, y, 0.0)
 
 
 class SubMConv(nn.Module):
@@ -141,8 +159,11 @@ class SubMConv(nn.Module):
             out = self.bn(out, x.occ, channel_dim=1)
             out = torch.where(x.occ[:, None], F.relu(out), 0.0).to(self.cdt)
             return replace(x, feats=out)
-        out = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
-                        self.cdt)
+        if isinstance(rb, tuple):
+            out = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
+                            self.cdt)
+        else:   # full-tap rulebook: conv-as-backward autograd function
+            out = sp.SubmConvFn.apply(x.feats, rb, self.weight, self.cdt)
         out = self.bn(out, x.mask)
         return replace(x, feats=torch.where(x.mask[..., None], F.relu(out), 0.0))
 
@@ -169,9 +190,13 @@ class SparseConvDown(nn.Module):
             of = self.bn(of, oz, channel_dim=1)
             of = torch.where(oz[:, None], F.relu(of), 0.0).to(self.cdt)
             return DenseTensor(feats=of, occ=oz, grid=out_grid)
-        rb, ok, om = plan
-        of = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
-                       self.cdt)
+        if len(plan) == 4:   # training plan with the transpose rulebook
+            rb, rbt, ok, om = plan
+            of = sp.DownConvFn.apply(x.feats, rb, rbt, self.weight, self.cdt)
+        else:
+            rb, ok, om = plan
+            of = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
+                           self.cdt)
         of = self.bn(of, om)
         of = torch.where(om[..., None], F.relu(of), 0.0)
         return SparseTensor(feats=of, keys=ok, mask=om, grid=out_grid)
@@ -182,7 +207,9 @@ def to_bev(x) -> torch.Tensor:
     (C, D) as the reference's ``view(N, C*D, H, W)``. The result is an
     NHWC view of an NCHW-contiguous map (``.permute(0, 3, 1, 2)`` is free)."""
     if isinstance(x, SparseTensor):
-        x, _ = dense_from_sparse_cols(x, x.keys.shape[1])
+        dense = sp.to_dense(x.feats, x.keys, x.mask, x.grid)  # (B, D, H, W, C)
+        b, d, h, w, c = dense.shape
+        return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
     b, c, d, h, w = x.feats.shape
     f = torch.where(x.occ[:, None], x.feats, 0.0)
     return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
@@ -223,22 +250,40 @@ class SpMiddleFHD(nn.Module):
         ]
 
     def forward(self, st: SparseTensor):
-        """Returns (bev (B, H, W, C*D), diagnostics {name: (B,) int32})."""
+        """Returns (bev (B, H, W, C*D), diagnostics {name: (B,) int32}).
+        In training mode every stage is sparse and planned with
+        ``sp.plan_stage_train_batched``; ``stage{1..4}_dropped`` count
+        the active output sites each stage's capacity truncated."""
+        cfg = self.cfg
+        dense_from = (cfg.train_dense_from_stage if self.training
+                      else cfg.dense_from_stage)
+        if self.training and dense_from < len(self.down):
+            raise NotImplementedError(
+                "training with dense late stages (train_dense_from_stage "
+                f"= {dense_from} < 4) is not ported")
         diag = {}
         x = st
         li = 0
         for si, (chans, spec) in enumerate(self.block_specs()):
-            if si >= self.cfg.dense_from_stage and isinstance(x, SparseTensor):
+            if si >= dense_from and isinstance(x, SparseTensor):
                 x, cdrop = dense_from_sparse_cols(
-                    x, self.cfg.stage_column_capacity(si))
+                    x, cfg.stage_column_capacity(si))
                 diag[f"stage{si}_densify_dropped"] = cdrop
             rb = plan = None
             if isinstance(x, SparseTensor):
-                rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
-                    x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
-                    spec["pad"], spec["out_cap"],
-                    subm_kernel=(3, 3, 3) if chans else None)
-                plan = (rbd, ok, om)
+                args = (x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
+                        spec["pad"], spec["out_cap"])
+                subm = (3, 3, 3) if chans else None
+                if self.training:
+                    rb, rbd, rbt, ok, om, ndrop = sp.plan_stage_train_batched(
+                        *args, subm_kernel=subm)
+                    plan = (rbd, rbt, ok, om)
+                else:
+                    rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
+                        *args, subm_kernel=subm,
+                        subm_col_cap=cfg.stage_column_capacity(si),
+                        down_col_cap=cfg.stage_column_capacity(si + 1))
+                    plan = (rbd, ok, om)
                 diag[f"stage{si + 1}_dropped"] = ndrop
             for _ in chans:
                 x = self.subm[li](x, rb)

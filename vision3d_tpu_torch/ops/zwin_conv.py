@@ -17,27 +17,12 @@ import torch
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import sparse as sp
 
-LAUNCHES = {"zwin_conv": 0}
+LAUNCHES = kernels.LAUNCHES
+reset_launches = kernels.reset_launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COUTS = (16, 32, 64, 128)
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _lib():
-    lib = kernels.load("zwin_conv")
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.zwin_conv_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                         ci, ci, vp]
-        lib.zwin_conv_launch.restype = ci
-        lib.zwin_conv_error_string.argtypes = [ci]
-        lib.zwin_conv_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_VP] * 5 + [_CI] * 6 + [_VP]
 
 
 def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
@@ -77,14 +62,10 @@ def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
     out = torch.empty((b, m, cout), dtype=torch.float32, device=feats.device)
-    lib = _lib()
     with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zwin_conv_launch(
+        kernels.launch(
+            "zwin_conv", _ARGTYPES,
             x.data_ptr(), start.data_ptr(), pattern.data_ptr(), w.data_ptr(),
-            out.data_ptr(), b, n, m, c, cout, _DTYPES[compute_dtype], stream)
-    if err:
-        raise RuntimeError("zwin_conv launch failed: "
-                           + lib.zwin_conv_error_string(err).decode())
-    LAUNCHES["zwin_conv"] += 1
+            out.data_ptr(), b, n, m, c, cout, _DTYPES[compute_dtype],
+            torch.cuda.current_stream().cuda_stream)
     return out

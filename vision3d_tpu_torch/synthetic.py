@@ -1,5 +1,6 @@
-"""Synthetic KITTI-like point clouds, seeded (the generator of
-``bench.py:20-62``, copied so the port needs nothing of the JAX repo)."""
+"""Synthetic KITTI-like point clouds and training batches, seeded (the
+generators of ``bench.py:20-62`` and ``bench_train.py:62-84``, copied so the
+port needs nothing of the JAX repo)."""
 
 import numpy as np
 
@@ -48,11 +49,7 @@ def kitti_like_points(rng, n):
     return pts[rng.permutation(len(pts))]
 
 
-def kitti_like_batch(seed, batch, points):
-    """(batch, points, 4) float32 clouds and (batch,) int32 counts, as
-    ``bench.py`` builds its batch: 1.6x oversampled, then cut or padded
-    by resampling to exactly ``points``."""
-    rng = np.random.default_rng(seed)
+def _clouds(rng, batch, points):
     clouds = []
     for _ in range(batch):
         p = kitti_like_points(rng, int(points * 1.6))
@@ -60,3 +57,35 @@ def kitti_like_batch(seed, batch, points):
             p = np.concatenate([p, p[rng.integers(0, len(p), points - len(p))]])
         clouds.append(p[:points])
     return np.stack(clouds), np.full((batch,), points, np.int32)
+
+
+def kitti_like_batch(seed, batch, points):
+    """(batch, points, 4) float32 clouds and (batch,) int32 counts, as
+    ``bench.py`` builds its batch: 1.6x oversampled, then cut or padded
+    by resampling to exactly ``points``."""
+    return _clouds(np.random.default_rng(seed), batch, points)
+
+
+def kitti_like_train_batch(seed, batch, points, max_gt=32, cfg=None):
+    """A training batch as ``bench_train.py`` builds it (numpy arrays):
+    the clouds of ``kitti_like_batch`` plus ``max_gt`` random ground-truth
+    boxes per sample, each valid with probability 0.5 and none ignored.
+    Without ``cfg`` every box is a car (class 0, 1.6 x 3.9 x 1.56); with
+    it, ``class_idx`` is drawn over the config's classes and a box takes
+    its class's anchor size."""
+    rng = np.random.default_rng(seed)
+    pts, num = _clouds(rng, batch, points)
+    boxes = np.zeros((batch, max_gt, 7), np.float32)
+    boxes[..., 0] = rng.uniform(5, 60, (batch, max_gt))
+    boxes[..., 1] = rng.uniform(-30, 30, (batch, max_gt))
+    boxes[..., 2] = -1.0
+    boxes[..., 3:6] = [1.6, 3.9, 1.56]
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (batch, max_gt))
+    gt_mask = rng.uniform(size=(batch, max_gt)) < 0.5
+    class_idx = np.zeros((batch, max_gt), np.int32)
+    if cfg is not None:
+        class_idx = rng.integers(0, cfg.num_classes, (batch, max_gt)).astype(np.int32)
+        wlh = np.asarray([a.wlh for a in cfg.anchors[:cfg.num_classes]], np.float32)
+        boxes[..., 3:6] = wlh[class_idx]
+    return dict(points=pts, num_points=num, boxes=boxes, class_idx=class_idx,
+                gt_mask=gt_mask, box_ignore=np.zeros((batch, max_gt), bool))
