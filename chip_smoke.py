@@ -1,8 +1,9 @@
 """GPU smoke test of the PyTorch port: builds the CUDA kernels, holds each
 against its plain PyTorch version at the shapes SECOND gives it, runs
 full-geometry 3-class SECOND inference (configs/second/all_classes.yaml,
-trained weights, bf16, batch 8 x 18,000 points) end to end, and takes
-training steps of the same model from a fresh seeded init.
+trained weights, bf16, batch 8 x 18,000 points) end to end on the voxel
+and on the column backend, and takes training steps of the same model
+from a fresh seeded init.
 
     python3 chip_smoke.py
 
@@ -11,16 +12,26 @@ Phases, each printing lines before the last:
   1. build every kernel from csrc/ (one nvcc each, in parallel);
   2. each kernel vs its plain version at the main path's shapes, bf16
      (atol 2e-2 * max|ref|, rtol 2e-2) and float32 (1e-4 of the scale),
-     with CUDA-event medians of kernel and plain times;
+     with CUDA-event medians of kernel and plain times; on the same layers
+     the two variants on gathered windows, zwin_align_v1 and zwin_align_v3,
+     against their plain versions and against zwin_conv's output;
   2b. the training path's kernels, gather_gemm (every sparse conv, forward
      and dX) and gather_rows (the dW regather), against their plain
      versions at every shape a training step gives them, on the real
      rulebooks of the batch; gather_rows also beside torch.index_select;
+  2c. column_conv against its plain version at the nine shapes of the
+     column backend, on the real column rulebooks and active sites of the
+     batch, and a broken copy of the result that must fail the same check;
   3. Second.inference end to end at torch's default precision settings:
      launch counts of the run, capacity counters all 0, finite outputs,
      p50 batch latency, peak memory;
-  4. a small-geometry reference check: the same model on the card and on
-     the CPU (plain versions), float32 with TF32 off, same detections;
+  3b. the same on the column backend (dense_from_stage 2: 6 column_conv
+     launches, no zwin_conv; then one forward with dense_from_stage 4: 14),
+     its counters held against the plain column plan, its detections
+     against the voxel backend's;
+  4. a small-geometry reference check, per backend: the same model on the
+     card and on the CPU (plain versions), float32 with TF32 off, same
+     detections;
   5. training at full geometry, bf16: train steps on one synthetic batch
      from a fresh seeded init: launch counts of a step, capacity counters 0,
      finite loss / gradients / parameters, loss decreasing, p50 step time,
@@ -43,6 +54,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vision3d_tpu_torch import convert, kernels
 from vision3d_tpu_torch.config import Config
@@ -51,9 +63,12 @@ from vision3d_tpu_torch.core.anchors import make_anchors
 from vision3d_tpu_torch.core.targets import assign_targets_batch
 from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch
 from vision3d_tpu_torch.models.losses import proposal_loss
-from vision3d_tpu_torch.models.sparse_cnn import SpMiddleFHD, from_voxels
+from vision3d_tpu_torch.models.sparse_cnn import (SpMiddleFHD, from_voxels,
+                                                  from_voxels_columns)
+from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops import zwin_conv as zw
+from vision3d_tpu_torch.ops.column_conv import column_conv
 from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 from vision3d_tpu_torch.synthetic import kitti_like_batch, kitti_like_train_batch
@@ -65,6 +80,15 @@ WEIGHTS = ROOT / "vision3d_tpu_torch" / "weights" / "second_all_classes_epoch11.
 BATCH, POINTS = 8, 18000
 STEPS_PER_EPOCH = 928         # 3712 KITTI train frames / 4, as bench_train.py
 TRAIN_WARMUP, TRAIN_TIMED = 3, 6
+# Column against voxel backend, bf16, same batch and weights (phase 3b).
+# Both sparse kernels sum a conv's taps in float32 in the same (k2, dz, c)
+# order and the backends share every other op, so on the card the two came
+# out equal (410 detections each, all paired, box and score deltas 0.0).
+# The gate leaves the room that another sum order takes: the column forward
+# at dense_from_stage 4 against 2 (cuDNN sums stages 2-3 otherwise) moved
+# boxes by 0.069 m, scores by 0.0032 and 3 of 412 detections (PERF.md).
+BACKENDS_MAX_UNMATCHED = 0.02     # share of detections with no partner within 0.5 m
+BACKENDS_MAX_BOX, BACKENDS_MAX_SCORE = 0.1, 0.02
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet peaks
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12        # outside the tensor cores
@@ -92,6 +116,12 @@ def full_float32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def agrees(got, ref, tol):
+    """|got - ref| <= tol * max|ref| + tol * |ref| everywhere."""
+    scale = float(ref.abs().max())
+    return bool(((got - ref).abs() <= tol * scale + tol * ref.abs()).all())
 
 
 def cuda_ms(fn, reps=15, warmup=3):
@@ -150,11 +180,66 @@ def zwin_bound_ms(b, n, c, cout, start, pattern, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), taps
 
 
-def kernel_phase(cfg, points, num, dev):
-    """Phase 2: B1 against its plain version at every path shape."""
+ALIGN = {"v1": (zw.zwin_align_gemm_v1, zw.zwin_align_gemm_v1_plain, zw.pair_masks),
+         "v3": (zw.zwin_align_gemm_v3, zw.zwin_align_gemm_v3_plain, zw.shift_masks)}
+
+
+def align_variant(variant, label, feats, start, pattern, w, dtype, tol, zwin_out, taps):
+    """One of the two kernels on gathered windows (B6 v1, B7 v3) on a
+    z-window layer of the path: against its plain version and against the
+    z-window kernel's output on the same layer; kernel and plain times on
+    the gathered windows and masks, and the bound for reading those once."""
+    fn, plain, make_masks = ALIGN[variant]
+    b, n, c = feats.shape
+    m, cout = start.shape[1] // 9, w.shape[1]
+    g_km = zw.gather_windows_km(feats, start, dtype)
+    masks = make_masks(pattern, m, dtype)
+    got = fn(g_km, masks, w)
+    torch.cuda.synchronize()
+    ref = plain(g_km, masks, w)
+    err = float((got - ref).abs().max())
+    check(torch.isfinite(got).all().item(), f"zwin_align_{variant} {label}: non-finite")
+    check(agrees(got, ref, tol), f"zwin_align_{variant} {label}: kernel disagrees "
+                                 f"with plain version (max abs err {err})")
+    check(agrees(got, zwin_out, tol), f"zwin_align_{variant} {label}: disagrees with "
+          f"zwin_conv (max abs err {float((got - zwin_out).abs().max())})")
+    del got, ref
+    ms = cuda_ms(lambda: fn(g_km, masks, w), reps=10)
+    plain_ms = cuda_ms(lambda: plain(g_km, masks, w), reps=3, warmup=1)
+    esize = g_km.element_size()
+    nbytes = ((g_km.numel() + masks.numel() + w.numel()) * esize + b * m * cout * 4)
+    bound, by = _bound(nbytes, 2 * c * cout * taps, dtype)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
+def align_variants_path(layers, dev):
+    """B6 and B7 have no model path: their path is the six z-window layers
+    of the forward, through ``conv_zwin_apply_v1`` / ``_v3`` (window gather
+    and masks in plain PyTorch, then the kernel). Returns the launch counts
+    of that run."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    zw.reset_launches()
+    for name, count, c, cout, n, start, pattern in layers:
+        feats = torch.randn((start.shape[0], n, c), generator=gen, device=dev)
+        w = torch.randn((27 * c, cout), generator=gen, device=dev) / (27 * c) ** 0.5
+        for _ in range(count):
+            for fn in (zw.conv_zwin_apply_v1, zw.conv_zwin_apply_v3):
+                out = fn(feats, start, pattern, w, (3, 3, 3), torch.bfloat16)
+                check(bool(torch.isfinite(out).all()), f"{fn.__name__} {name}: non-finite")
+    torch.cuda.synchronize()
+    launches = dict(zw.LAUNCHES)
+    check(launches["zwin_align_v1"] == 6 and launches["zwin_align_v3"] == 6
+          and launches["zwin_conv"] == 0, f"variants run launched {launches}")
+    return launches
+
+
+def kernel_phase(layers, dev):
+    """Phase 2: B1 against its plain version at every path shape, and B6
+    and B7 on the same layers."""
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = []
-    for name, count, c, cout, n, start, pattern in path_layers(cfg, points, num):
+    for name, count, c, cout, n, start, pattern in layers:
         b = start.shape[0]
         feats = torch.randn((b, n, c), generator=gen, device=dev)
         w = torch.randn((27 * c, cout), generator=gen, device=dev) / (27 * c) ** 0.5
@@ -179,38 +264,190 @@ def kernel_phase(cfg, points, num, dev):
                         f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
                         f"{tag}_bound_ms": bound, f"{tag}_bound_by": by,
                         "active_taps": taps})
+            del ref
+            for variant in ALIGN:
+                res = align_variant(variant, f"{name} {tag}", feats, start, pattern, w,
+                                    dtype, tol, got, taps)
+                row.update({f"{variant}_{tag}_{k}": v for k, v in res.items()})
         print(f"zwin_conv {name}: B={b} N={n} M={row['M']} taps={row['active_taps']} "
               f"bf16 {row['bf16_ms']:.4f} ms (plain {row['bf16_plain_ms']:.3f}, "
               f"bound {row['bf16_bound_ms']:.4f} {row['bf16_bound_by']}, "
               f"err {row['bf16_max_abs_err']:.3g}) | f32 {row['f32_ms']:.4f} ms "
               f"(plain {row['f32_plain_ms']:.3f}, err {row['f32_max_abs_err']:.3g})",
               flush=True)
+        for variant in ALIGN:
+            v = {k[len(variant) + 1:]: x for k, x in row.items()
+                 if k.startswith(variant + "_")}
+            print(f"zwin_align_{variant} {name}: bf16 {v['bf16_ms']:.4f} ms (plain "
+                  f"{v['bf16_plain_ms']:.3f}, bound {v['bf16_bound_ms']:.4f} "
+                  f"{v['bf16_bound_by']}, err {v['bf16_max_abs_err']:.3g}) | f32 "
+                  f"{v['f32_ms']:.4f} ms (plain {v['f32_plain_ms']:.3f}, err "
+                  f"{v['f32_max_abs_err']:.3g}); equal to zwin_conv within tolerance",
+                  flush=True)
         shapes.append(row)
     return shapes
 
 
-def end_to_end_phase(model, anchors, points, num):
-    """Phase 3: one counted forward, then timed ones."""
+def column_path_layers(cfg, points, num):
+    """The column convs of the column backend with their real rulebooks and
+    active sites, from the plain column plan of the batch run through all
+    four stages (``dense_from_stage = 4``). Returns (layers, counters):
+    layers, one dict per distinct conv shape, with its launches per forward
+    at ``dense_from_stage`` 2 and 4; counters, the plan's own drop counts
+    under the names ``Second.forward`` gives them."""
+    layers = []
+    with torch.no_grad():
+        vox = voxelize_batch(points, num, cfg)
+        ct, ndrop = from_voxels_columns(
+            mean_vfe(vox["features"], vox["occupancy"]), vox["coords"],
+            vox["voxel_mask"], cfg.grid_shape_zyx, cfg.stage_column_capacity(0))
+        counters = {"stage0_columns_dropped": int(ndrop.sum())}
+        keys, mask, grid = ct.keys, ct.mask, ct.grid
+        site = ct.zmask & mask[..., None]
+        cin = cfg.c_in
+        for si, (chans, spec) in enumerate(SpMiddleFHD(cfg).block_specs()):
+            common = dict(D=grid[0], N=keys.shape[1], site=site)
+            rbs = csp.build_bev_rulebook_batched(keys, mask, grid[1:], (3, 3), (1, 1),
+                                                 (1, 1))
+            widths = {}
+            for ch in chans:
+                widths[(cin, ch)] = widths.get((cin, ch), 0) + 1
+                cin = ch
+            for (ci, co), cnt in widths.items():
+                layers.append(dict(shape=f"s{si}_subm_{ci}x{co}", launches_df4=cnt,
+                                   launches_per_forward=cnt if si < 2 else 0, C=ci,
+                                   Cout=co, kernel=(3, 3, 3), stride_z=1, pad_z=1,
+                                   rb=rbs, **common))
+            kernel, stride, pad = spec["kernel"], spec["stride"], spec["pad"]
+            out_grid = sp.out_grid_shape(grid, kernel, stride, pad)
+            if kernel[1:] == (1, 1) and stride[1:] == (1, 1):
+                ok, om, nd = keys, mask, torch.zeros_like(ndrop)
+            else:
+                ok, om, nd = csp.downsample_bev_columns(
+                    keys, mask, grid[1:], kernel[1:], stride[1:], pad[1:],
+                    spec["out_col_cap"], out_grid[1:])
+            counters[f"stage{si + 1}_columns_dropped"] = int(nd.sum())
+            rbd = csp.build_bev_rulebook_batched(keys, mask, grid[1:], kernel[1:],
+                                                 stride[1:], pad[1:], ok, om, out_grid[1:])
+            cout = spec["features"]
+            layers.append(dict(shape=f"s{si}_down_{cin}x{cout}_k{kernel[1] * kernel[2]}",
+                               launches_df4=1, launches_per_forward=1 if si < 2 else 0,
+                               C=cin, Cout=cout, kernel=kernel, stride_z=stride[0],
+                               pad_z=pad[0], rb=rbd, **common))
+            site = csp.column_occupancy_batched(site, rbd, kernel, stride[0],
+                                                pad[0]) & om[..., None]
+            keys, mask, grid, cin = ok, om, out_grid, cout
+    return layers, counters
+
+
+def column_kernel_phase(layers, dev):
+    """Phase 2c: B3 against its plain version at every shape of the column
+    backend: random values at the layer's real active sites (zeros
+    elsewhere, as the model's rows are), the layer's real rulebook. Each
+    check is repeated on a deliberately broken result (the last BEV offset
+    of every column dropped), which must fail it."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for layer in layers:
+        name, c, cout, d, n = (layer[k] for k in ("shape", "C", "Cout", "D", "N"))
+        kernel, sz, pz, rb, site = (layer[k] for k in
+                                    ("kernel", "stride_z", "pad_z", "rb", "site"))
+        kz, k2 = kernel[0], kernel[1] * kernel[2]
+        b, m = rb.shape[0], rb.shape[1] // k2
+        d_out = csp.conv_out_depth(d, kz, sz, pz)
+        feats = (torch.randn((b, n, d, c), generator=gen, device=dev)
+                 * site[..., None]).reshape(b, n, d * c)
+        w = torch.randn((kz * k2 * c, cout), generator=gen, device=dev) / (kz * k2 * c) ** 0.5
+        # what this rulebook and these active sites need: one C x Cout product
+        # per (output z, BEV offset, dz) whose input site is active
+        zt = F.pad(site, (pz, pz, 0, 1))
+        win = torch.gather(zt, 1, rb.long()[..., None].expand(b, m * k2, zt.shape[-1]))
+        taps = int(win.unfold(-1, kz, sz).sum())
+        out_sites = int(csp.column_occupancy_batched(site, rb, kernel, sz, pz).sum())
+        del zt, win
+        rb_broken = rb.reshape(b, m, k2).clone()
+        rb_broken[..., -1] = n
+        rb_broken = rb_broken.reshape(b, m * k2)
+        row = {"shape": name, "launches_per_forward": layer["launches_per_forward"],
+               "launches_df4": layer["launches_df4"], "B": b, "N": n, "M": m, "D": d,
+               "D_out": d_out, "C": c, "Cout": cout, "K2": k2, "active_taps": taps,
+               "active_out_sites": out_sites}
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            got = column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype)
+            torch.cuda.synchronize()
+            ref = csp.column_conv_dz(feats, rb, w, kernel, d, c, sz, pz, dtype)
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(torch.isfinite(got).all().item(), f"column_conv {name} {tag}: non-finite")
+            check(scale > 0, f"column_conv {name} {tag}: the plain version is all zero")
+            check(agrees(got, ref, tol), f"column_conv {name} {tag}: kernel disagrees "
+                  f"with plain version (max abs err {err}, scale {scale})")
+            broken = column_conv(feats, rb_broken, w, kernel, d, c, sz, pz, dtype)
+            broken_err = float((broken - ref).abs().max())
+            check(not agrees(broken, ref, tol), f"column_conv {name} {tag}: a result "
+                  "with a BEV offset dropped passes the check: the check is vacuous")
+            del got, ref, broken
+            ms = cuda_ms(lambda: column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype),
+                         reps=10)
+            plain = cuda_ms(lambda: csp.column_conv_dz(feats, rb, w, kernel, d, c, sz,
+                                                       pz, dtype), reps=3, warmup=1)
+            esize = torch.finfo(dtype).bits // 8
+            nbytes = ((feats.numel() + w.numel()) * esize + rb.numel() * 4
+                      + b * m * d_out * cout * 4)
+            bound, by = _bound(nbytes, 2 * c * cout * taps, dtype)
+            row.update({f"{tag}_max_abs_err": err, f"{tag}_ref_scale": scale,
+                        f"{tag}_broken_err": broken_err, f"{tag}_ms": ms,
+                        f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
+                        f"{tag}_bound_by": by})
+        print(f"column_conv {name} x{row['launches_per_forward']} (x{row['launches_df4']} "
+              f"all-column): B={b} N={n} M={m} D={d}->{d_out} taps={taps} "
+              f"out sites={out_sites} bf16 {row['bf16_ms']:.4f} ms (plain "
+              f"{row['bf16_plain_ms']:.3f}, bound {row['bf16_bound_ms']:.4f} "
+              f"{row['bf16_bound_by']}, err {row['bf16_max_abs_err']:.3g}, broken copy "
+              f"err {row['bf16_broken_err']:.3g}) | f32 {row['f32_ms']:.4f} ms (plain "
+              f"{row['f32_plain_ms']:.3f}, err {row['f32_max_abs_err']:.3g})", flush=True)
+        rows.append(row)
+    return rows
+
+
+def counted_forward(model, anchors, points, num, want_launches, want_counters=None):
+    """One forward with the launch counts set to 0 just before and read just
+    after. The kernels in ``want_launches`` must have launched exactly that
+    often, every other kernel not at all; the capacity counters must equal
+    ``want_counters``, or without it all but ``voxelizer_dropped`` be 0.
+    Returns (Detections, launches, counters)."""
     zw.reset_launches()
     torch.cuda.synchronize()
     with torch.no_grad():
         det, diag = model.inference(points, num, anchors)
     torch.cuda.synchronize()
     launches = dict(zw.LAUNCHES)
-    check(launches["zwin_conv"] == 6,
-          f"zwin_conv launched {launches['zwin_conv']} times in one forward, not 6")
+    for name, n in launches.items():
+        check(n == want_launches.get(name, 0), f"{name} launched {n} times in one "
+              f"forward, not {want_launches.get(name, 0)}")
     counters = {k: int(v) for k, v in diag.items()}
-    for k, v in counters.items():
-        if k != "voxelizer_dropped":
-            check(v == 0, f"capacity counter {k} = {v}")
+    if want_counters is not None:
+        check(counters == want_counters, f"capacity counters {counters} differ from "
+                                         f"the plain plan's {want_counters}")
+    else:
+        for k, v in counters.items():
+            if k != "voxelizer_dropped":
+                check(v == 0, f"capacity counter {k} = {v}")
     for name, t in det._asdict().items():
         if t.is_floating_point():
             check(bool(torch.isfinite(t).all()), f"non-finite {name}")
     k = model.cfg.num_classes * model.cfg.proposal.topk
     check(tuple(det.boxes.shape) == (points.shape[0], k, 7), "Detections shape")
-    valid = det.valid.sum(dim=1).tolist()
-    check(sum(valid) > 0, "no valid detection in the batch")
+    check(int(det.valid.sum()) > 0, "no valid detection in the batch")
+    return det, launches, counters
 
+
+def end_to_end_phase(model, anchors, points, num, want_launches, want_counters=None):
+    """Phases 3 and 3b: one counted forward, then timed ones."""
+    det, launches, counters = counted_forward(model, anchors, points, num,
+                                              want_launches, want_counters)
+    valid = det.valid.sum(dim=1).tolist()
     torch.cuda.reset_peak_memory_stats()
     times = []
     with torch.no_grad():
@@ -221,10 +458,67 @@ def end_to_end_phase(model, anchors, points, num):
             torch.cuda.synchronize()
             if i >= 3:
                 times.append(1e3 * (time.perf_counter() - t0))
-    return dict(launches=launches, counters=counters, valid_per_frame=valid,
+    return dict(det=det, launches=launches, counters=counters, valid_per_frame=valid,
                 latency_ms_p50=float(np.median(times)),
                 latency_ms=[float(t) for t in times],
                 peak_mem_bytes=int(torch.cuda.max_memory_allocated()))
+
+
+def compare_backends(det_a, det_b, radius=0.5):
+    """Detections of two runs on one batch: every valid detection of one is
+    paired with the nearest valid detection of the other that has its class
+    (centre distance, at most ``radius`` m). Returns the counts, the
+    detections left without a partner on either side, and over the pairs
+    the largest |box difference| (yaw modulo pi) and |score difference|."""
+    out = dict(n_a=int(det_a.valid.sum()), n_b=int(det_b.valid.sum()), unmatched_a=0,
+               unmatched_b=0, box_delta=0.0, score_delta=0.0)
+    for f in range(det_a.boxes.shape[0]):
+        va, vb = det_a.valid[f], det_b.valid[f]
+        ba, bb = det_a.boxes[f][va].float(), det_b.boxes[f][vb].float()
+        if len(ba) == 0 or len(bb) == 0:
+            out["unmatched_a"] += len(ba)
+            out["unmatched_b"] += len(bb)
+            continue
+        dist = torch.cdist(ba[:, :3], bb[:, :3])
+        dist[det_a.class_idx[f][va][:, None] != det_b.class_idx[f][vb][None]] = float("inf")
+        near, idx = dist.min(dim=1)
+        hit = near <= radius
+        out["unmatched_a"] += int((~hit).sum())
+        out["unmatched_b"] += int((dist.min(dim=0).values > radius).sum())
+        if hit.any():
+            diff = (ba[hit] - bb[idx[hit]]).abs()
+            diff[:, 6] = ((ba[hit, 6] - bb[idx[hit], 6] + np.pi / 2) % np.pi - np.pi / 2).abs()
+            score = (det_a.scores[f][va][hit] - det_b.scores[f][vb][idx[hit]]).abs()
+            out["box_delta"] = max(out["box_delta"], float(diff.max()))
+            out["score_delta"] = max(out["score_delta"], float(score.max()))
+    return out
+
+
+def column_phase(cfg, sd, anchors, points, num, dev, plan_counters, voxel_run):
+    """Phase 3b: the column backend end to end with the same weights."""
+    want = {"voxelizer_dropped": voxel_run["counters"]["voxelizer_dropped"],
+            **{k: plan_counters[k] for k in ("stage0_columns_dropped",
+                                             "stage1_columns_dropped",
+                                             "stage2_columns_dropped")}}
+    cfg_c = cfg.replace(sparse_backend="column")
+    model, _ = create_second(cfg_c, device=dev, state_dict=sd)     # strict load
+    run = end_to_end_phase(model, anchors, points, num, {"column_conv": 6}, want)
+    del model
+    model4, _ = create_second(cfg_c.replace(dense_from_stage=4), device=dev, state_dict=sd)
+    want4 = {"voxelizer_dropped": want["voxelizer_dropped"], **plan_counters}
+    det4, launches4, counters4 = counted_forward(model4, anchors, points, num,
+                                                 {"column_conv": 14}, want4)
+    run.update(launches_df4=launches4, counters_df4=counters4,
+               valid_df4=int(det4.valid.sum()),
+               vs_voxel=compare_backends(run["det"], voxel_run["det"]),
+               df4_vs_df2=compare_backends(det4, run["det"]))
+    cmp = run["vs_voxel"]
+    n = max(cmp["n_a"], cmp["n_b"], 1)
+    check(max(cmp["unmatched_a"], cmp["unmatched_b"]) <= BACKENDS_MAX_UNMATCHED * n
+          and cmp["box_delta"] <= BACKENDS_MAX_BOX
+          and cmp["score_delta"] <= BACKENDS_MAX_SCORE,
+          f"column and voxel backends disagree: {cmp}")
+    return run
 
 
 def small_geometry_cfg():
@@ -246,20 +540,25 @@ def crop_to_grid(cfg, pts):
             np.full((len(pts),), n, np.int32))
 
 
-def reference_phase(sd, dev):
-    """Phase 4: small geometry, float32, trained weights: card vs CPU.
-    Called under ``full_float32()``: the card's f32 convs and matmuls are
-    full float32 like the CPU's."""
-    cfg = small_geometry_cfg()
+def reference_phase(sd, dev, backend):
+    """Phase 4: small geometry, float32, trained weights: card vs CPU on
+    the ``backend`` representation. Called under ``full_float32()``: the
+    card's f32 convs and matmuls are full float32 like the CPU's."""
+    cfg = small_geometry_cfg().replace(sparse_backend=backend)
     pts, num = crop_to_grid(cfg, kitti_like_batch(1, 2, 60000)[0])
     n = int(num[0])
     out = {}
     for d in (dev, torch.device("cpu")):
         model, anchors = create_second(cfg, device=d, state_dict=sd)
+        zw.reset_launches()
         with torch.no_grad():
             det, diag = model.inference(torch.from_numpy(pts).to(d),
                                         torch.from_numpy(num).to(d), anchors)
         out[d.type] = (det, {k: int(v) for k, v in diag.items()})
+        used = "column_conv" if backend == "column" else "zwin_conv"
+        check(zw.LAUNCHES[used] == (6 if d.type == "cuda" else 0)
+              and sum(zw.LAUNCHES.values()) == zw.LAUNCHES[used],
+              f"reference check on {d.type}: launches {dict(zw.LAUNCHES)}")
     (gd, gdiag), (cd, cdiag) = out["cuda"], out["cpu"]
     check(gdiag == cdiag, f"counters differ: card {gdiag} vs CPU {cdiag}")
     gv, cv = gd.valid.cpu(), cd.valid
@@ -269,7 +568,7 @@ def reference_phase(sd, dev):
     score = float((gd.scores.cpu() - cd.scores)[cv].abs().max())
     # the AP cross-check yardstick (AP_r05_crosscheck.json)
     check(box <= 0.0077 and score <= 0.0008, f"box delta {box}, score delta {score}")
-    return dict(points=n, detections=int(cv.sum()), box_delta=box,
+    return dict(backend=backend, points=n, detections=int(cv.sum()), box_delta=box,
                 score_delta=score, counters=cdiag)
 
 
@@ -575,17 +874,39 @@ def main():
     sd = convert.state_dict_from_flax(convert.load_npz(WEIGHTS))
     model, anchors = create_second(cfg, device=dev, state_dict=sd)
 
-    shapes = kernel_phase(cfg, points, num_t, dev)
+    zwin_layers = path_layers(cfg, points, num_t)
+    shapes = kernel_phase(zwin_layers, dev)
+    align_launches = align_variants_path(zwin_layers, dev)
+    print(f"zwin_align variants on the forward's z-window layers: launches "
+          f"{align_launches}", flush=True)
+    del zwin_layers
+    col_layers, plan_counters = column_path_layers(cfg, points, num_t)
+    col_rows = column_kernel_phase(col_layers, dev)
+    del col_layers
     gg_rows, gr_rows = train_kernel_phase(cfg, points, num_t, dev)
-    e2e = end_to_end_phase(model, anchors, points, num_t)
+    torch.cuda.empty_cache()
+    e2e = end_to_end_phase(model, anchors, points, num_t, {"zwin_conv": 6})
     print(f"e2e: batch {BATCH} x {POINTS} points, p50 {e2e['latency_ms_p50']:.2f} ms, "
           f"peak mem {e2e['peak_mem_bytes'] / 2**30:.2f} GiB, "
           f"valid detections per frame {e2e['valid_per_frame']}, "
           f"counters {e2e['counters']}, launches {e2e['launches']}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    col = column_phase(cfg, sd, anchors, points, num_t, dev, plan_counters, e2e)
+    print(f"e2e column backend: p50 {col['latency_ms_p50']:.2f} ms, peak mem "
+          f"{col['peak_mem_bytes'] / 2**30:.2f} GiB, valid detections per frame "
+          f"{col['valid_per_frame']}, counters {col['counters']} (equal to the plain "
+          f"plan's), launches {col['launches']}; dense_from_stage 4: launches "
+          f"{col['launches_df4']}, counters {col['counters_df4']}, "
+          f"{col['valid_df4']} valid detections", flush=True)
+    print(f"column vs voxel backend detections (bf16): {col['vs_voxel']}; column "
+          f"dense_from_stage 4 vs 2: {col['df4_vs_df2']}", flush=True)
     with full_float32():
-        ref = reference_phase(sd, dev)
-    print(f"reference check (card vs CPU, f32, small geometry): {ref}", flush=True)
-    del model, anchors
+        for backend in ("voxel", "column"):
+            ref = reference_phase(sd, dev, backend)
+            print(f"reference check (card vs CPU, f32, small geometry): {ref}",
+                  flush=True)
+    del anchors
     gc.collect()
     torch.cuda.empty_cache()      # the training phase starts from a clean pool
     expected = {"zwin_conv": 0,
@@ -652,6 +973,37 @@ def main():
          "library_ms": per(gr_rows, "bf16_library_ms"),   # torch.index_select
          "shapes": brief(gr_rows, "launches_per_step",
                          ("Q", "C", "bf16_library_ms") + times)},
+        {"name": "column_conv", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/column_conv.cu",
+         "replaces": "vision3d_tpu/ops/pallas/column_conv.py:86",
+         "launches": col["launches"]["column_conv"],
+         "max_abs_err": max(r["bf16_max_abs_err"] for r in col_rows),
+         "ms": per(col_rows, "bf16_ms", "launches_per_forward"),
+         "plain_ms": per(col_rows, "bf16_plain_ms", "launches_per_forward"),
+         "bound_ms": per(col_rows, "bf16_bound_ms", "launches_per_forward"),
+         "bound_by": bound_by([r for r in col_rows if r["launches_per_forward"]]),
+         # no single PyTorch call gathers neighbour columns and convolves in z
+         "library_ms": None,
+         "launches_dense_from_stage_4": col["launches_df4"]["column_conv"],
+         "ms_dense_from_stage_4": per(col_rows, "bf16_ms", "launches_df4"),
+         "shapes": brief(col_rows, "launches_per_forward",
+                         ("launches_df4", "M", "D", "active_taps") + times)},
+    ] + [
+        {"name": f"zwin_align_{v}", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",
+         "replaces": f"vision3d_tpu/ops/pallas/zwin_conv.py:{line}",
+         "launches": align_launches[f"zwin_align_{v}"],
+         "max_abs_err": max(r[f"{v}_bf16_max_abs_err"] for r in shapes),
+         "ms": per(shapes, f"{v}_bf16_ms", "launches_per_forward"),
+         "plain_ms": per(shapes, f"{v}_bf16_plain_ms", "launches_per_forward"),
+         "bound_ms": per(shapes, f"{v}_bf16_bound_ms", "launches_per_forward"),
+         "bound_by": ("bytes" if all(r[f"{v}_bf16_bound_by"] == "bytes" for r in shapes)
+                      else "operations"),
+         # no single PyTorch call aligns gathered windows by masks and multiplies
+         "library_ms": None,
+         "shapes": brief(shapes, "launches_per_forward",
+                         tuple(f"{v}_{t}" for t in times))}
+        for v, line in (("v1", 55), ("v3", 238))
     ]
     print(smi)
     print(json.dumps({"kernels": entries}))

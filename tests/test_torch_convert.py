@@ -6,7 +6,6 @@ AP cross-check yardstick (AP_r05_crosscheck.json): equal detection
 counts, box delta <= 0.0077, score delta <= 0.0008."""
 
 import importlib.util
-import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -20,14 +19,11 @@ from vision3d_tpu.core.anchors import make_anchors
 from vision3d_tpu.models.second import Second
 from vision3d_tpu_torch import convert, inference_cli
 from vision3d_tpu_torch.models import second as tsecond
-from vision3d_tpu_torch.synthetic import kitti_like_points
 
-from torch_parity import port_cfg
+from torch_parity import ROOT, WEIGHTS, YAML, port_cfg
+from torch_parity import kitti_like_frames as _frames
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
 CKPT = ROOT / "ckpts_synth_r05_3c" / "epoch_11"
-YAML = ROOT / "configs" / "second" / "all_classes.yaml"
-WEIGHTS = ROOT / "vision3d_tpu_torch" / "weights" / "second_all_classes_epoch11.npz"
 
 
 def _export_tool():
@@ -49,19 +45,6 @@ def exported(tmp_path_factory):
 def cfg3(tiny_cfg):
     full = Config.from_yaml(str(YAML))
     return tiny_cfg.replace(num_classes=3, anchors=full.anchors)
-
-
-def _frames(cfg, seed, batch=2):
-    """KITTI-like clouds cropped to the tiny grid: objects, ground, clutter."""
-    rng = np.random.default_rng(seed)
-    lo, hi = np.asarray(cfg.grid_bounds[:3]), np.asarray(cfg.grid_bounds[3:])
-    clouds = []
-    for _ in range(batch):
-        p = kitti_like_points(rng, 30000)
-        p = p[((p[:, :3] >= lo) & (p[:, :3] < hi)).all(1)]
-        clouds.append(p[:1500])
-    n = min(len(c) for c in clouds)
-    return np.stack([c[:n] for c in clouds]), np.full((batch,), n, np.int32)
 
 
 def test_committed_weights_are_the_export(exported):

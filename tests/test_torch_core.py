@@ -53,9 +53,10 @@ def test_port_imports_nothing_of_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 23
+    assert len(mods) >= 25
     for new in ("core.targets", "models.losses", "ops.gather_gemm", "ops.gather_rows",
-                "training.train", "training.checkpoint", "training.metrics"):
+                "training.train", "training.checkpoint", "training.metrics",
+                "ops.column_sparse", "ops.column_conv"):
         assert "vision3d_tpu_torch." + new in mods
 
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows) against
-their plain PyTorch versions, on the card. Every test here needs a CUDA device and skips without one. This
+"""The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
+column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
+versions, on the card. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -9,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from vision3d_tpu_torch.ops import column_sparse as tcsp
 from vision3d_tpu_torch.ops import sparse as tsp
 from vision3d_tpu_torch.ops import zwin_conv as tzw
+from vision3d_tpu_torch.ops.column_conv import column_conv
 from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 
@@ -177,3 +180,137 @@ def test_conv_fn_gradients_card_vs_cpu(dtype, tol, cuda_device):
         res.append([t.detach().cpu() for t in (z, xs.grad, a.grad, b.grad)])
     for got, ref in zip(*res):
         torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=tol)
+
+
+def _cc_case(c, cout, d, kernel, seed, dev, b=2, n=200, m=531, sparse_z=True):
+    """Random column rulebook: rows in [0, N], N (a miss) for about a
+    third, one all-miss column; rows active at a few z only, as a column
+    of voxels is."""
+    rng = np.random.default_rng(seed)
+    k2 = kernel[1] * kernel[2]
+    cf = rng.normal(size=(b, n, d, c)).astype(np.float32)
+    if sparse_z:
+        cf *= (rng.uniform(size=(b, n, d, 1)) < 0.25)
+    rb = rng.integers(0, n + 1, (b, m * k2)).astype(np.int32)
+    rb[rng.uniform(size=rb.shape) < 0.3] = n
+    rb[1, 7 * k2: 8 * k2] = n
+    w = (rng.normal(size=(kernel[0] * k2 * c, cout)) / np.sqrt(27 * c)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (cf.reshape(b, n, d * c), rb, w)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,d,kernel,sz,pz", [
+    (4, 16, 41, (3, 3, 3), 1, 1), (16, 16, 41, (3, 3, 3), 1, 1),
+    (16, 32, 41, (3, 3, 3), 2, 1), (32, 32, 21, (3, 3, 3), 1, 1),
+    (32, 64, 21, (3, 3, 3), 2, 1), (64, 64, 11, (3, 3, 3), 1, 1),
+    (64, 64, 11, (3, 3, 3), 2, 0), (64, 64, 5, (3, 3, 3), 1, 1),
+    (64, 64, 5, (3, 1, 1), 2, 0), (32, 32, 21, (3, 3, 3), 2, 0)])
+def test_column_conv_kernel_matches_plain(c, cout, d, kernel, sz, pz, dtype, cuda_device):
+    """Every (C, Cout, D, kernel, stride_z, pad_z) of the column path, M
+    not a multiple of any tile. Both sum exact products of compute-dtype
+    inputs in float32, in other orders: 1e-5 of the output scale. An
+    all-miss column gives exact zeros."""
+    cf, rb, w = _cc_case(c, cout, d, kernel, c + cout + d, cuda_device)
+    before = tzw.LAUNCHES["column_conv"]
+    got = column_conv(cf, rb, w, kernel, d, c, sz, pz, dtype)
+    torch.cuda.synchronize()
+    assert tzw.LAUNCHES["column_conv"] == before + 1
+    ref = tcsp.column_conv_dz(cf, rb, w, kernel, d, c, sz, pz, dtype)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    assert not got[1, 7].any()
+
+
+def test_column_conv_kernel_dense_rows_and_unaligned_base(cuda_device):
+    """Rows with every z active (no tap skipped), and a table whose base is
+    only row-aligned (C = 4 bf16 rows are 8 bytes: narrower loads)."""
+    cf, rb, w = _cc_case(4, 16, 41, (3, 3, 3), 1, cuda_device, sparse_z=False)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = tcsp.column_conv_dz(cf, rb, w, (3, 3, 3), 41, 4, 1, 1, dtype)
+        got = column_conv(cf, rb, w, (3, 3, 3), 41, 4, 1, 1, dtype)
+        torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    odd = torch.cat([cf.new_zeros((1,)), cf.reshape(-1)])[1:].reshape(cf.shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    got = column_conv(odd, rb, w, (3, 3, 3), 41, 4, 1, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tcsp.column_conv_dz(cf, rb, w, (3, 3, 3), 41, 4, 1, 1),
+                               atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+
+
+def test_column_conv_kernel_treats_out_of_range_rows_as_misses(cuda_device):
+    cf, rb, w = _cc_case(16, 32, 21, (3, 3, 3), 9, cuda_device)
+    n = cf.shape[1]
+    ref = column_conv(cf, rb, w, (3, 3, 3), 21, 16)
+    wild = torch.where(rb == n, torch.full_like(rb, -1), rb)
+    wild[0, ::7] = torch.where(wild[0, ::7] < 0, n + 5, wild[0, ::7])
+    torch.testing.assert_close(column_conv(cf, wild, w, (3, 3, 3), 21, 16), ref,
+                               atol=0, rtol=0)
+
+
+def test_column_conv_kernel_rejects_bad_input(cuda_device):
+    cf, rb, w = _cc_case(16, 32, 21, (3, 3, 3), 4, cuda_device)
+    args = ((3, 3, 3), 21, 16)
+    with pytest.raises(TypeError):
+        column_conv(cf, rb.long(), w, *args)
+    with pytest.raises(TypeError):
+        column_conv(cf, rb, w, *args, compute_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        column_conv(cf, rb, w[:-1], *args)
+    with pytest.raises(ValueError):
+        column_conv(cf, rb, w[:, :24], *args)            # Cout 24 has no instance
+    with pytest.raises(ValueError):
+        column_conv(cf, rb, w, (3, 3, 3), 7, 48)           # C not a power of two
+    with pytest.raises(ValueError):
+        column_conv(cf, rb.cpu(), w, *args)
+    with pytest.raises(ValueError):
+        column_conv(cf.transpose(1, 2).contiguous().transpose(1, 2), rb, w, *args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+@pytest.mark.parametrize("c", [4, 16, 32])
+def test_zwin_align_kernels_match_plain_and_zwin_conv(c, variant, dtype, cuda_device):
+    """The kernels on gathered windows against their plain versions and
+    against the z-window kernel on the same rulebook: 1e-5 of the scale."""
+    feats, start, pattern, w = _case(c, 5, cuda_device, m=1003)
+    m = start.shape[1] // 9
+    g_km = tzw.gather_windows_km(feats, start, dtype)
+    name = f"zwin_align_{variant}"
+    before = tzw.LAUNCHES[name]
+    if variant == "v1":
+        masks = tzw.pair_masks(pattern, m, dtype)
+        got = tzw.zwin_align_gemm_v1(g_km, masks, w)
+        ref = tzw.zwin_align_gemm_v1_plain(g_km, masks, w)
+        via = tzw.conv_zwin_apply_v1(feats, start, pattern, w, (3, 3, 3), dtype)
+    else:
+        masks = tzw.shift_masks(pattern, m, dtype)
+        got = tzw.zwin_align_gemm_v3(g_km, masks, w)
+        ref = tzw.zwin_align_gemm_v3_plain(g_km, masks, w)
+        via = tzw.conv_zwin_apply_v3(feats, start, pattern, w, (3, 3, 3), dtype)
+    torch.cuda.synchronize()
+    assert tzw.LAUNCHES[name] == before + 2
+    tol = dict(atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    torch.testing.assert_close(got, ref, **tol)
+    assert torch.equal(via, got)
+    torch.testing.assert_close(got, tzw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype),
+                               **tol)
+
+
+def test_zwin_align_kernels_reject_bad_input(cuda_device):
+    feats, start, pattern, w = _case(16, 6, cuda_device)
+    m = start.shape[1] // 9
+    g_km = tzw.gather_windows_km(feats, start, torch.float32)
+    m1 = tzw.pair_masks(pattern, m, torch.float32)
+    m3 = tzw.shift_masks(pattern, m, torch.float32)
+    with pytest.raises(TypeError):
+        tzw.zwin_align_gemm_v1(g_km, m1.bfloat16(), w)
+    with pytest.raises(TypeError):
+        tzw.zwin_align_gemm_v3(g_km.half(), m3.half(), w)
+    with pytest.raises(ValueError):
+        tzw.zwin_align_gemm_v1(g_km, m3, w)                 # the other layout
+    with pytest.raises(ValueError):
+        tzw.zwin_align_gemm_v3(g_km, m3, w[:-1])
+    with pytest.raises(ValueError):
+        tzw.zwin_align_gemm_v3(g_km, m3.cpu(), w)
+    with pytest.raises(ValueError):
+        tzw.zwin_align_gemm_v1(g_km.transpose(1, 2).contiguous().transpose(1, 2), m1, w)

@@ -2,10 +2,16 @@
 a JAX Config turned into the port's Config, and seeded numpy inputs."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 
 from vision3d_tpu_torch import config as tconfig
+from vision3d_tpu_torch.synthetic import kitti_like_points
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+YAML = ROOT / "configs" / "second" / "all_classes.yaml"
+WEIGHTS = ROOT / "vision3d_tpu_torch" / "weights" / "second_all_classes_epoch11.npz"
 
 
 def port_cfg(cfg):
@@ -43,3 +49,17 @@ def sorted_key_sets(rng, grid, batch, n, lo, hi):
         keys.append(np.concatenate([k, np.full(n - nact, d * h * w, np.int32)]))
         mask.append(np.arange(n) < nact)
     return np.stack(keys), np.stack(mask)
+
+
+def kitti_like_frames(cfg, seed, batch=2):
+    """KITTI-like clouds cropped to the grid of ``cfg``: objects, ground,
+    clutter; (points (batch, n, 4), num_points (batch,) int32)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.asarray(cfg.grid_bounds[:3]), np.asarray(cfg.grid_bounds[3:])
+    clouds = []
+    for _ in range(batch):
+        p = kitti_like_points(rng, 30000)
+        p = p[((p[:, :3] >= lo) & (p[:, :3] < hi)).all(1)]
+        clouds.append(p[:1500])
+    n = min(len(c) for c in clouds)
+    return np.stack([c[:n] for c in clouds]), np.full((batch,), n, np.int32)

@@ -1,0 +1,92 @@
+"""Microbench: the three z-window conv kernels of the PyTorch port on one
+set of rulebooks, on a GPU (counterpart of tools/microbench_zwin.py).
+
+Full KITTI geometry, configs/second/all_classes.yaml, batch 8 x 18,000
+synthetic points: the real (start, pattern) rulebooks of the forward's six
+z-window layers (``chip_smoke.path_layers``). Per layer, in bf16 (or --dtype float32), CUDA-event
+medians of
+  * v2: ``zwin_conv`` (csrc/zwin_conv.cu), which reads (feats, start,
+    pattern) itself: the kernel the model runs;
+  * v1 and v3: ``zwin_align_gemm_v1`` / ``_v3`` (csrc/zwin_align_gemm.cu)
+    on already gathered windows: the kernel alone, and the whole
+    ``conv_zwin_apply_v1`` / ``_v3`` with its window gather and mask build
+    in plain PyTorch;
+  * the plain version ``ops.sparse.conv_zwin_apply``.
+Every variant's output is held against v2's (1e-4 of the scale in float32,
+2e-2 in bf16) before it is timed.
+
+    python tools/microbench_torch_zwin.py [--iters 10] [--dtype bfloat16]
+"""
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import cuda_ms, path_layers  # noqa: E402
+from vision3d_tpu_torch.config import Config  # noqa: E402
+from vision3d_tpu_torch.ops import sparse as sp  # noqa: E402
+from vision3d_tpu_torch.ops import zwin_conv as zw  # noqa: E402
+from vision3d_tpu_torch.synthetic import kitti_like_batch  # noqa: E402
+
+K3 = (3, 3, 3)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("microbench_torch_zwin: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    dtype = getattr(torch, args.dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip())
+    cfg = Config.from_yaml(str(ROOT / "configs/second/all_classes.yaml"))
+    pts, num = kitti_like_batch(0, 8, 18000)
+    layers = path_layers(cfg, torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    totals = {}
+    for name, count, c, cout, n, start, pattern in layers:
+        b, m = start.shape[0], start.shape[1] // 9
+        feats = torch.randn((b, n, c), generator=gen, device=dev)
+        w = torch.randn((27 * c, cout), generator=gen, device=dev) / (27 * c) ** 0.5
+        ref = zw.zwin_conv(feats, start, pattern, w, K3, dtype)
+        scale = float(ref.abs().max())
+        g_km = zw.gather_windows_km(feats, start, dtype)
+        m1, m3 = zw.pair_masks(pattern, m, dtype), zw.shift_masks(pattern, m, dtype)
+        runs = {
+            "v2 zwin_conv": lambda: zw.zwin_conv(feats, start, pattern, w, K3, dtype),
+            "v1 kernel": lambda: zw.zwin_align_gemm_v1(g_km, m1, w),
+            "v1 gather+masks+kernel":
+                lambda: zw.conv_zwin_apply_v1(feats, start, pattern, w, K3, dtype),
+            "v3 kernel": lambda: zw.zwin_align_gemm_v3(g_km, m3, w),
+            "v3 gather+masks+kernel":
+                lambda: zw.conv_zwin_apply_v3(feats, start, pattern, w, K3, dtype),
+            "plain": lambda: sp.conv_zwin_apply(feats, start, pattern, w, K3, dtype),
+        }
+        for label, fn in runs.items():
+            err = float((fn() - ref).abs().max())
+            if err > tol * scale:
+                print(f"{name} {label}: differs from v2 by {err} (scale {scale})",
+                      file=sys.stderr)
+                return 1
+            ms = cuda_ms(fn, reps=args.iters)
+            totals[label] = totals.get(label, 0.0) + count * ms
+            print(f"{name:16s} B={b} N={n} M={m} {label:24s} {ms:8.4f} ms", flush=True)
+    for label, ms in totals.items():
+        print(f"per forward (6 launches) {label:24s} {ms:8.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

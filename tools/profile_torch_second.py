@@ -2,7 +2,7 @@
 
 Full KITTI geometry, configs/second/all_classes.yaml with the exported
 trained weights, bf16, batch 8 x 18,000 synthetic points (the
-chip_smoke.py workload). Prints:
+chip_smoke.py workload), on the voxel or the column backend. Prints:
   * per-stage times from CUDA events (median of --iters forwards):
     voxelize + VFE + sort, the SpMiddleFHD middle extractor, RPN + head,
     decode + NMS;
@@ -12,7 +12,8 @@ chip_smoke.py workload). Prints:
     of the unprofiled latency (the profiler's own host cost makes the
     profiled window's wall time useless for that).
 
-    python tools/profile_torch_second.py [--iters 5]
+    python tools/profile_torch_second.py [--iters 5] [--backend {voxel,column}]
+        [--dense-from-stage N]
 """
 
 import argparse
@@ -28,10 +29,9 @@ sys.path.insert(0, str(ROOT))
 
 from vision3d_tpu_torch import convert  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
-from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch  # noqa: E402
+from vision3d_tpu_torch.core.voxelize import voxelize_batch  # noqa: E402
 from vision3d_tpu_torch.models.head import head_inference  # noqa: E402
-from vision3d_tpu_torch.models.second import create_second  # noqa: E402
-from vision3d_tpu_torch.models.sparse_cnn import from_voxels  # noqa: E402
+from vision3d_tpu_torch.models.second import build_middle_input, create_second  # noqa: E402
 from vision3d_tpu_torch.synthetic import kitti_like_batch  # noqa: E402
 
 
@@ -46,12 +46,10 @@ def stages(model, anchors, points, num):
         ev.record()
         marks.append((name, ev))
 
-    vox = voxelize_batch(points, num, cfg)
-    st = from_voxels(mean_vfe(vox["features"], vox["occupancy"]), vox["coords"],
-                     vox["voxel_mask"], cfg.grid_shape_zyx)
-    mark("voxelize+vfe+sort")
+    st, _ = build_middle_input(cfg, voxelize_batch(points, num, cfg))
+    mark("voxelize+vfe+" + ("columns" if cfg.sparse_backend == "column" else "sort"))
     bev, _ = model.cnn(st)
-    mark("middle (plan, zwin convs, densify, dense convs)")
+    mark("middle (plans, sparse convs, densify, dense convs)")
     cls_map, reg_map = model.head(model.rpn(bev.permute(0, 3, 1, 2).float()))
     mark("rpn+head")
     head_inference(cls_map, reg_map, anchors, cfg)
@@ -64,13 +62,17 @@ def stages(model, anchors, points, num):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--backend", choices=("voxel", "column"), default="voxel")
+    ap.add_argument("--dense-from-stage", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_second: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     cfg = Config.from_yaml(str(ROOT / "configs/second/all_classes.yaml")).replace(
-        compute_dtype="bfloat16")
+        compute_dtype="bfloat16", sparse_backend=args.backend,
+        dense_from_stage=args.dense_from_stage)
+    print(f"backend {args.backend}, dense_from_stage {args.dense_from_stage}")
     sd = convert.state_dict_from_flax(convert.load_npz(
         ROOT / "vision3d_tpu_torch/weights/second_all_classes_epoch11.npz"))
     model, anchors = create_second(cfg, device=dev, state_dict=sd)

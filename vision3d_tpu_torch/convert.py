@@ -16,7 +16,6 @@ shaped like the parameters, so ``opt_state_from_optax`` /
 import numpy as np
 import torch
 
-N_SUBM = 10   # SpMiddleFHD: 2 + 2 + 3 + 3 submanifold convs
 N_DOWN = 4
 N_RPN = 7     # 6 3x3 + one 1x1 ConvBNReLU
 
@@ -39,9 +38,10 @@ def load_npz(path) -> dict:
         return unflatten({k: z[k] for k in z.files})
 
 
-def _leaves(p, s):
+def _leaves(n_subm, s):
     """[(state_dict name, flax collection, flax path, is 2D conv kernel)]
-    for the trees present (``s`` None: parameters only)."""
+    of a model with ``n_subm`` submanifold convs, for the trees present
+    (``s`` None: parameters only)."""
     out = []
 
     def bn(prefix, path):
@@ -51,7 +51,7 @@ def _leaves(p, s):
             out.append((f"{prefix}.running_mean", "batch_stats", path + ("mean",), False))
             out.append((f"{prefix}.running_var", "batch_stats", path + ("var",), False))
 
-    for kind, n, name in (("subm", N_SUBM, "SubMConv"),
+    for kind, n, name in (("subm", n_subm, "SubMConv"),
                           ("down", N_DOWN, "SparseConvDown")):
         for i in range(n):
             path = ("cnn", f"{name}_{i}")
@@ -75,11 +75,13 @@ def _get(tree, path):
 
 def state_dict_from_flax(variables) -> dict:
     """Map the flax tree onto ``models.second.Second``'s state_dict; with
-    no ``batch_stats`` in ``variables``, onto its named parameters only."""
+    no ``batch_stats`` in ``variables``, onto its named parameters only.
+    The tree may be SpMiddleFHD's or SpMiddleFHDLite's (no ``SubMConv_*``)."""
     trees = {"params": variables["params"],
              "batch_stats": variables.get("batch_stats")}
+    n_subm = sum(k.startswith("SubMConv_") for k in trees["params"]["cnn"])
     sd = {}
-    for name, coll, path, conv2d in _leaves(trees["params"], trees["batch_stats"]):
+    for name, coll, path, conv2d in _leaves(n_subm, trees["batch_stats"]):
         x = np.array(_get(trees[coll], path), dtype=np.float32)
         sd[name] = torch.from_numpy(np.transpose(x, (3, 2, 0, 1)) if conv2d else x)
     if trees["batch_stats"] is not None:
@@ -93,8 +95,9 @@ def flax_from_state_dict(sd) -> dict:
     flax ``{"params": ..., "batch_stats": ...}`` tree of numpy arrays
     (``batch_stats`` only when ``sd`` holds running statistics)."""
     with_stats = any(k.endswith("running_mean") for k in sd)
+    n_subm = sum(k.startswith("cnn.subm.") and k.endswith(".bn.weight") for k in sd)
     flat = {}
-    for name, coll, path, conv2d in _leaves(True, True if with_stats else None):
+    for name, coll, path, conv2d in _leaves(n_subm, True if with_stats else None):
         x = sd[name].detach().cpu().numpy()
         flat["/".join((coll,) + path)] = (np.transpose(x, (2, 3, 1, 0))
                                           if conv2d else x)

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C entry point. It is
-compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so``
+Each kernel has a plain C entry point ``<name>_launch`` in one
+``csrc/<source>.cu`` (its own ``<name>.cu`` unless ``SOURCES`` names
+another: the two z-window align kernels share a file). A source is
+compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<source>-<hash>.so``
 under this package at first use (the hash of the source keeps a stale
 library from being loaded) and bound with ``ctypes``. Nothing is built
-when a module is imported; ``build()`` compiles several kernels at once,
-one ``nvcc`` process each. ``launch()`` calls a kernel's
-``<name>_launch`` entry point and raises on a CUDA error; ``LAUNCHES``
-counts the launches of each kernel.
+when a module is imported; ``build()`` compiles several sources at once,
+one ``nvcc`` process each. ``launch()`` calls a kernel's entry point and
+raises on a CUDA error; ``LAUNCHES`` counts the launches of each kernel.
 """
 
 import ctypes
@@ -20,7 +21,9 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-KERNELS = ("zwin_conv", "gather_gemm", "gather_rows")
+KERNELS = ("zwin_conv", "gather_gemm", "gather_rows", "column_conv",
+           "zwin_align_v1", "zwin_align_v3")
+SOURCES = {"zwin_align_v1": "zwin_align_gemm", "zwin_align_v3": "zwin_align_gemm"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -42,17 +45,22 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def so_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+def source_of(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
+def so_path(source: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{source}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD / f"lib{source}-{digest}.so"
 
 
 def build(names=KERNELS) -> dict:
-    """Compile every kernel in ``names`` that is not built yet, all in
-    parallel. Returns {name: ptxas/nvcc log}; raises if any build fails."""
+    """Compile the source of every kernel in ``names`` that is not built
+    yet, all in parallel. Returns {source: ptxas/nvcc log}; raises if any
+    build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
+    for name in dict.fromkeys(source_of(n) for n in names):
         out = so_path(name)
         if out.exists():
             continue
@@ -75,12 +83,13 @@ def build(names=KERNELS) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built on first use."""
-    lib = _loaded.get(name)
+    """The library that holds the kernel, built on first use."""
+    source = source_of(name)
+    lib = _loaded.get(source)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(so_path(name)))
-        _loaded[name] = lib
+        build((source,))
+        lib = ctypes.CDLL(str(so_path(source)))
+        _loaded[source] = lib
     return lib
 
 
@@ -91,10 +100,9 @@ def launch(name: str, argtypes, *args):
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        err_fn = getattr(lib, f"{name}_error_string")
-        err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
     err = fn(*args)
     if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           + getattr(lib, f"{name}_error_string")(err).decode())
+        err_fn = getattr(lib, f"{source_of(name)}_error_string")
+        err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: " + err_fn(err).decode())
     LAUNCHES[name] += 1

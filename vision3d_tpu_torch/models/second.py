@@ -1,14 +1,19 @@
 """SECOND one-stage voxel detector, inference and training forward (port
 of ``vision3d_tpu/models/second.py``).
 
-points -> voxelize + mean VFE -> key-sorted sparse tensor -> SpMiddleFHD
--> BEV -> RPN -> proposal head; ``inference`` also decodes against the
-anchor grid and runs rotated NMS. The capacity diagnostics the JAX model
-sows (``voxelizer_dropped``, ``stage1_dropped``, ``stage2_dropped``,
-``stage2_densify_dropped``) are returned as a dict of 0-d int tensors
-next to the outputs; nothing here synchronises with the device. In
-training mode (``model.train()``) the middle extractor runs fully sparse
-and the counters are ``voxelizer_dropped`` and ``stage{1..4}_dropped``.
+points -> voxelize + mean VFE -> the sparse representation
+``cfg.sparse_backend`` names (key-sorted voxels, or BEV columns dense in
+z) -> the middle extractor ``cfg.cnn`` names -> BEV -> RPN -> proposal
+head; ``inference`` also decodes against the anchor grid and runs rotated
+NMS. The capacity diagnostics the JAX model sows are returned as a dict
+of 0-d int tensors next to the outputs; nothing here synchronises with
+the device: ``voxelizer_dropped``, and on the voxel backend
+``stage1_dropped``, ``stage2_dropped``, ``stage2_densify_dropped``, on
+the column backend ``stage0_columns_dropped`` and one
+``stage{i}_columns_dropped`` per sparse stage. In training mode
+(``model.train()``, voxel backend only) the middle extractor runs fully
+sparse and the counters are ``voxelizer_dropped`` and
+``stage{1..4}_dropped``.
 """
 
 import math
@@ -21,18 +26,31 @@ from vision3d_tpu_torch.core.anchors import make_anchors
 from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch
 from vision3d_tpu_torch.models.head import Detections, ProposalHead, head_inference
 from vision3d_tpu_torch.models.rpn import RPN
-from vision3d_tpu_torch.models.sparse_cnn import SpMiddleFHD, from_voxels
+from vision3d_tpu_torch.models.sparse_cnn import (CNN_FACTORY, from_voxels,
+                                                  from_voxels_columns)
+
+
+def build_middle_input(cfg: Config, vox):
+    """Voxelizer output -> (the configured sparse representation, the
+    per-sample count of active BEV columns the stage-0 column capacity
+    truncated: None on the voxel backend, whose capacity is the
+    voxelizer's own ``max_voxels``)."""
+    feats = mean_vfe(vox["features"], vox["occupancy"])
+    if cfg.sparse_backend == "column":
+        return from_voxels_columns(feats, vox["coords"], vox["voxel_mask"],
+                                   cfg.grid_shape_zyx,
+                                   cfg.stage_column_capacity(0))
+    return from_voxels(feats, vox["coords"], vox["voxel_mask"],
+                       cfg.grid_shape_zyx), None
 
 
 class Second(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.cnn != "SpMiddleFHD" or cfg.sparse_backend != "voxel":
-            raise NotImplementedError(
-                "the port runs SpMiddleFHD on the voxel backend only "
-                f"(got cnn={cfg.cnn}, sparse_backend={cfg.sparse_backend})")
+        if cfg.sparse_backend not in ("voxel", "column"):
+            raise ValueError(f"unknown sparse_backend {cfg.sparse_backend!r}")
         self.cfg = cfg
-        self.cnn = SpMiddleFHD(cfg)
+        self.cnn = CNN_FACTORY[cfg.cnn](cfg)
         c = cfg.proposal.c_in
         self.rpn = RPN(c_in=c, c_down=c, c_up=c)
         self.head = ProposalHead(cfg)
@@ -43,9 +61,9 @@ class Second(nn.Module):
         vox = voxelize_batch(points, num_points, cfg)
         diag = {"voxelizer_dropped":
                 (vox["num_voxels_total"] - vox["num_voxels"]).sum()}
-        feats = mean_vfe(vox["features"], vox["occupancy"])
-        st = from_voxels(feats, vox["coords"], vox["voxel_mask"],
-                         cfg.grid_shape_zyx)
+        st, col_dropped = build_middle_input(cfg, vox)
+        if col_dropped is not None:
+            diag["stage0_columns_dropped"] = col_dropped.sum()
         bev, cnn_diag = self.cnn(st)
         diag.update({k: v.sum() for k, v in cnn_diag.items()})
         x = self.rpn(bev.permute(0, 3, 1, 2).float())

@@ -1,5 +1,6 @@
-"""SpMiddleFHD sparse middle extractor (port of the voxel and dense
-branches of ``vision3d_tpu/models/sparse_cnn.py``), inference and training.
+"""SpMiddleFHD sparse middle extractors (port of
+``vision3d_tpu/models/sparse_cnn.py``): the voxel, column and dense
+representations for inference, the voxel one for training.
 
 Four blocks of submanifold + strided convs take voxel features at grid
 (41, 1600, 1408) ZYX down to (2, 200, 176), then collapse z into a
@@ -12,7 +13,16 @@ four stages run sparse on full-tap rulebooks (``cfg.train_dense_from_stage
 = 4``): every conv is the ``gather_gemm`` CUDA kernel, forward and dX, and
 dW regathers its columns with the ``gather_rows`` kernel.
 
-Layouts: a ``SparseTensor`` is (B, N, C); a ``DenseTensor`` holds feats
+With ``cfg.sparse_backend = "column"`` the input is a ``ColumnTensor``
+(sparse in BEV, dense in z, ``ops/column_sparse.py``): the sparse stages
+run BEV-column rulebooks and the ``column_conv`` CUDA kernel, and the
+cutover to the dense stages is one row gather (``dense_from_columns``).
+The parameters are the same whatever the representation, so one state
+dict serves both backends. Inference only: training on columns is not
+ported.
+
+Layouts: a ``SparseTensor`` is (B, N, C); a ``ColumnTensor`` holds flat
+z-major (B, Ncol, D*C) rows; a ``DenseTensor`` holds feats
 as (B, C, D, H, W) in channels-last-3d memory (cuDNN's preferred layout;
 the JAX package's hwdc/z-major choice was a TPU tactic) and occupancy as
 (B, D, H, W). Weights keep the JAX layout (K*Cin, Cout),
@@ -26,7 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision3d_tpu_torch.config import Config
+from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
+from vision3d_tpu_torch.ops.column_conv import column_conv
 from vision3d_tpu_torch.ops.zwin_conv import zwin_conv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -41,6 +53,24 @@ class SparseTensor:
 
 
 @dataclass
+class ColumnTensor:
+    """Column-sparse tensor: the channel count rides along as ``c``."""
+    feats: torch.Tensor  # (B, Ncol, D*C) flat z-major rows
+    zmask: torch.Tensor  # (B, Ncol, D) bool
+    keys: torch.Tensor   # (B, Ncol) int32 sorted BEV keys y*W + x
+    mask: torch.Tensor   # (B, Ncol) bool
+    grid: tuple
+    c: int = 4
+
+    def to_voxel_sparse(self, cap: int) -> SparseTensor:
+        b, n, _ = self.feats.shape
+        f4 = self.feats.reshape(b, n, self.grid[0], self.c).float()
+        f, k, m = csp.columns_to_voxels(f4, self.zmask, self.keys, self.mask,
+                                        self.grid, cap)
+        return SparseTensor(feats=f, keys=k, mask=m, grid=self.grid)
+
+
+@dataclass
 class DenseTensor:
     feats: torch.Tensor  # (B, C, D, H, W), channels-last-3d memory
     occ: torch.Tensor    # (B, D, H, W) bool: the exact spconv active set
@@ -50,6 +80,38 @@ class DenseTensor:
 def from_voxels(feats, coords, mask, grid) -> SparseTensor:
     f, k, m = sp.make_sorted(feats, coords, mask, grid)
     return SparseTensor(feats=f, keys=k, mask=m, grid=grid)
+
+
+def from_voxels_columns(feats, coords, mask, grid, ncol_cap: int):
+    """Returns (ColumnTensor, n_dropped (B,) int32: active columns the
+    capacity ``ncol_cap`` truncated)."""
+    f, z, k, m, ndrop = csp.columns_from_voxels_batched(feats, coords, mask,
+                                                        grid, ncol_cap)
+    return ColumnTensor(feats=f, zmask=z, keys=k, mask=m, grid=grid,
+                        c=feats.shape[-1]), ndrop
+
+
+def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
+    """ColumnTensor -> DenseTensor cutover for the dense late stages: a BEV
+    slot map, then every cell fetches its column's flat (D*C) row (a miss
+    reads a zero row), and one transpose into the z-major
+    channels-last-3d layout (``dense_from_columns``,
+    vision3d_tpu/models/sparse_cnn.py:270, without its ``keep_keys``)."""
+    d, h, w = ct.grid
+    b, n, _ = ct.feats.shape
+    hw, c = h * w, ct.c
+    dev = ct.feats.device
+    slot = torch.full((b, hw + 1), n, dtype=torch.int64, device=dev)
+    slot.scatter_(1, torch.where(ct.mask, ct.keys, hw).long(),
+                  torch.arange(n, device=dev).expand(b, n))
+    slot = (slot[:, :hw] + torch.arange(b, device=dev)[:, None] * (n + 1)).reshape(-1)
+    table = F.pad(ct.feats, (0, 0, 0, 1)).reshape(b * (n + 1), d * c)
+    feats = table[slot].reshape(b, h, w, d, c).permute(0, 4, 3, 1, 2)
+    zt = F.pad(ct.zmask, (0, 0, 0, 1)).reshape(b * (n + 1), d)
+    occ = zt[slot].reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+    return DenseTensor(
+        feats=feats.contiguous(memory_format=torch.channels_last_3d),
+        occ=occ, grid=ct.grid)
 
 
 def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int):
@@ -142,6 +204,19 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(m, y, 0.0)
 
 
+def _column_bn_relu(bn, out, site, cdt):
+    """Masked BN + ReLU on the flat (B, N, D*C) f32 rows of a column conv,
+    zeroed off the active sites (B, N, D) and rounded to the compute dtype
+    (``MaskedBatchNormFlat`` with the parameters of ``MaskedBatchNorm``,
+    vision3d_tpu/models/sparse_cnn.py:421, :506-510)."""
+    if bn.training:
+        raise NotImplementedError("training on the column backend is not ported")
+    b, n, d = site.shape
+    y = bn(out.reshape(b, n, d, -1), site)
+    y = torch.where(site[..., None], F.relu(y), 0.0).to(cdt)
+    return y.reshape(b, n, -1)
+
+
 class SubMConv(nn.Module):
     """Submanifold conv: output sites == input sites."""
 
@@ -159,6 +234,12 @@ class SubMConv(nn.Module):
             out = self.bn(out, x.occ, channel_dim=1)
             out = torch.where(x.occ[:, None], F.relu(out), 0.0).to(self.cdt)
             return replace(x, feats=out)
+        if isinstance(x, ColumnTensor):
+            out = column_conv(x.feats, rb, self.weight, self.kernel, x.grid[0],
+                              x.c, 1, self.kernel[0] // 2, self.cdt)
+            site = x.zmask & x.mask[..., None]
+            return replace(x, feats=_column_bn_relu(self.bn, out, site, self.cdt),
+                           c=self.weight.shape[1])
         if isinstance(rb, tuple):
             out = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
                             self.cdt)
@@ -171,17 +252,20 @@ class SubMConv(nn.Module):
 class SparseConvDown(nn.Module):
     """Strided conv: a new, coarser active set."""
 
-    def __init__(self, cin, cout, kernel, stride, pad, out_cap,
+    def __init__(self, cin, cout, kernel, stride, pad, out_cap, out_col_cap,
                  dtype="float32"):
         super().__init__()
         self.kernel, self.stride, self.pad = kernel, stride, pad
         self.out_cap = out_cap
+        self.out_col_cap = out_col_cap  # output columns, column backend
         self.cdt = _DTYPES[dtype]
         kv = kernel[0] * kernel[1] * kernel[2]
         self.weight = nn.Parameter(torch.zeros(kv * cin, cout))
         self.bn = MaskedBatchNorm(cout)
 
     def forward(self, x, plan=None):
+        """x: a DenseTensor, or a SparseTensor with its stage plan (a
+        ColumnTensor goes through ``forward_columns``)."""
         out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
         if isinstance(x, DenseTensor):
             of = _dense_conv(x.feats, self.weight, self.kernel, self.stride,
@@ -201,6 +285,32 @@ class SparseConvDown(nn.Module):
         of = torch.where(om[..., None], F.relu(of), 0.0)
         return SparseTensor(feats=of, keys=ok, mask=om, grid=out_grid)
 
+    def forward_columns(self, x: ColumnTensor):
+        """The strided conv on a ColumnTensor: returns (ColumnTensor,
+        columns_dropped (B,) int32: active output columns the column
+        capacity truncated)."""
+        out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
+        kyx, syx, pyx = self.kernel[1:], self.stride[1:], self.pad[1:]
+        in_hw, out_hw = x.grid[1:], out_grid[1:]
+        if kyx == (1, 1) and syx == (1, 1):
+            # BEV-identity down conv (the (3, 1, 1) stage): same column set
+            ok, om = x.keys, x.mask
+            ndrop = torch.zeros((x.keys.shape[0],), dtype=torch.int32,
+                                device=x.keys.device)
+        else:
+            ok, om, ndrop = csp.downsample_bev_columns(
+                x.keys, x.mask, in_hw, kyx, syx, pyx, self.out_col_cap, out_hw)
+        rb = csp.build_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
+                                            out_keys=ok, out_mask=om, out_hw=out_hw)
+        of = column_conv(x.feats, rb, self.weight, self.kernel, x.grid[0], x.c,
+                         self.stride[0], self.pad[0], self.cdt)
+        oz = csp.column_occupancy_batched(x.zmask, rb, self.kernel, self.stride[0],
+                                          self.pad[0])
+        site = oz & om[..., None]
+        return ColumnTensor(feats=_column_bn_relu(self.bn, of, site, self.cdt),
+                            zmask=oz, keys=ok, mask=om, grid=out_grid,
+                            c=self.weight.shape[1]), ndrop
+
 
 def to_bev(x) -> torch.Tensor:
     """Collapse z: -> dense BEV (B, H, W, C*D), channels c-major over
@@ -210,6 +320,9 @@ def to_bev(x) -> torch.Tensor:
         dense = sp.to_dense(x.feats, x.keys, x.mask, x.grid)  # (B, D, H, W, C)
         b, d, h, w, c = dense.shape
         return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
+    if isinstance(x, ColumnTensor):
+        return csp.columns_to_bev_batched(x.feats, x.zmask, x.keys, x.mask,
+                                          x.grid, x.c)
     b, c, d, h, w = x.feats.shape
     f = torch.where(x.occ[:, None], x.feats, 0.0)
     return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
@@ -231,7 +344,7 @@ class SpMiddleFHD(nn.Module):
                 cin = ch
             down.append(SparseConvDown(cin, spec["features"], spec["kernel"],
                                        spec["stride"], spec["pad"],
-                                       spec["out_cap"], dt))
+                                       spec["out_cap"], spec["out_col_cap"], dt))
             cin = spec["features"]
         self.subm = nn.ModuleList(subm)
         self.down = nn.ModuleList(down)
@@ -240,20 +353,27 @@ class SpMiddleFHD(nn.Module):
         c = self.cfg
         return [
             ([16, 16], dict(features=32, kernel=(3, 3, 3), stride=(2, 2, 2),
-                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(1))),
+                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(1),
+                            out_col_cap=c.stage_column_capacity(1))),
             ([32, 32], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
-                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(2))),
+                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(2),
+                            out_col_cap=c.stage_column_capacity(2))),
             ([64, 64, 64], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
-                                pad=(0, 1, 1), out_cap=c.stage_voxel_capacity(3))),
+                                pad=(0, 1, 1), out_cap=c.stage_voxel_capacity(3),
+                                out_col_cap=c.stage_column_capacity(3))),
             ([64, 64, 64], dict(features=64, kernel=(3, 1, 1), stride=(2, 1, 1),
-                                pad=(0, 0, 0), out_cap=c.stage_voxel_capacity(4))),
+                                pad=(0, 0, 0), out_cap=c.stage_voxel_capacity(4),
+                                out_col_cap=c.stage_column_capacity(4))),
         ]
 
-    def forward(self, st: SparseTensor):
-        """Returns (bev (B, H, W, C*D), diagnostics {name: (B,) int32}).
-        In training mode every stage is sparse and planned with
+    def forward(self, st):
+        """st: a SparseTensor or (inference only) a ColumnTensor. Returns
+        (bev (B, H, W, C*D), diagnostics {name: (B,) int32}). In training
+        mode every stage is sparse and planned with
         ``sp.plan_stage_train_batched``; ``stage{1..4}_dropped`` count
-        the active output sites each stage's capacity truncated."""
+        the active output sites each stage's capacity truncated. On a
+        ColumnTensor ``stage{1..4}_columns_dropped`` count the active
+        output columns each sparse stage's column capacity truncated."""
         cfg = self.cfg
         dense_from = (cfg.train_dense_from_stage if self.training
                       else cfg.dense_from_stage)
@@ -269,6 +389,8 @@ class SpMiddleFHD(nn.Module):
                 x, cdrop = dense_from_sparse_cols(
                     x, cfg.stage_column_capacity(si))
                 diag[f"stage{si}_densify_dropped"] = cdrop
+            elif si >= dense_from and isinstance(x, ColumnTensor):
+                x = dense_from_columns(x)
             rb = plan = None
             if isinstance(x, SparseTensor):
                 args = (x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
@@ -285,8 +407,26 @@ class SpMiddleFHD(nn.Module):
                         down_col_cap=cfg.stage_column_capacity(si + 1))
                     plan = (rbd, ok, om)
                 diag[f"stage{si + 1}_dropped"] = ndrop
+            elif chans and isinstance(x, ColumnTensor):
+                rb = csp.build_bev_rulebook_batched(x.keys, x.mask, x.grid[1:],
+                                                    (3, 3), (1, 1), (1, 1))
             for _ in chans:
                 x = self.subm[li](x, rb)
                 li += 1
-            x = self.down[si](x, plan)
+            if isinstance(x, ColumnTensor):
+                x, diag[f"stage{si + 1}_columns_dropped"] = \
+                    self.down[si].forward_columns(x)
+            else:
+                x = self.down[si](x, plan)
         return to_bev(x), diag
+
+
+class SpMiddleFHDLite(SpMiddleFHD):
+    """Strided-conv-only variant: no submanifold convs
+    (vision3d_tpu/models/sparse_cnn.py:812)."""
+
+    def block_specs(self):
+        return [([], down) for _, down in super().block_specs()]
+
+
+CNN_FACTORY = dict(SpMiddleFHD=SpMiddleFHD, SpMiddleFHDLite=SpMiddleFHDLite)

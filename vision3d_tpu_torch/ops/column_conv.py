@@ -1,0 +1,90 @@
+"""Column-sparse conv: wrapper of the CUDA kernel ``csrc/column_conv.cu``.
+
+Port of the TPU kernel ``vision3d_tpu/ops/pallas/column_conv.py:86``
+(``column_conv_pallas``): gather the K2 BEV-neighbour columns as flat
+``D*C`` rows, then per output z one ``(kz*K2*C) x Cout`` product, with
+``stride_z`` and ``pad_z``. The TPU wrapper padded rows to 1024 lanes,
+appended a zero row, padded z and re-tiled the rulebook; the CUDA kernel
+reads ``(col_feats, rb_idx, weight)`` as the model holds them and treats a
+rulebook entry outside ``[0, N)`` as a miss.
+
+On a CPU tensor the wrapper runs the plain PyTorch version
+(``ops.column_sparse.column_conv_dz``); on a CUDA tensor it launches the
+kernel or raises. ``LAUNCHES["column_conv"]`` counts kernel launches.
+"""
+
+import ctypes
+
+import torch
+
+from vision3d_tpu_torch import kernels
+from vision3d_tpu_torch.ops import column_sparse as csp
+
+LAUNCHES = kernels.LAUNCHES
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_COUTS = (16, 32, 64)
+_MAX_D, _MAX_K2, _MAX_TAPS = 60, 9, 32   # csrc/column_conv.cu
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_VP] * 4 + [_CI] * 11 + [_VP]
+
+
+def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
+                compute_dtype=torch.float32):
+    """col_feats (B, N, D*C) flat z-major rows; rb_idx (B, M*K2) int32 with
+    misses = N (K2 = ky*kx minor); weight (kz*K2*C, Cout), taps
+    (dz, dy, dx)-major. Returns (B, M, D_out*Cout) f32 with
+    ``D_out = (D + 2*pad_z - kz)//stride_z + 1``. Inputs are rounded to
+    ``compute_dtype`` (float32 or bfloat16); sums are float32."""
+    if col_feats.device.type == "cpu":
+        return csp.column_conv_dz(col_feats, rb_idx, weight, kernel, d, c,
+                                  stride_z, pad_z, compute_dtype)
+    if col_feats.device.type != "cuda":
+        raise ValueError(f"column_conv: unsupported device {col_feats.device}")
+    if compute_dtype not in _DTYPES:
+        raise TypeError(f"column_conv: compute_dtype {compute_dtype} unsupported")
+    for name, t in (("rb_idx", rb_idx), ("weight", weight)):
+        if t.device != col_feats.device:
+            raise ValueError(f"column_conv: {name} on {t.device}, col_feats on "
+                             f"{col_feats.device}")
+    kz, ky, kx = kernel
+    k2 = ky * kx
+    if (col_feats.dim() != 3 or rb_idx.dim() != 2
+            or rb_idx.shape[0] != col_feats.shape[0]):
+        raise ValueError("column_conv: need col_feats (B, N, D*C) and rb_idx (B, M*K2)")
+    b, n, dc = col_feats.shape
+    if dc != d * c or c <= 0 or c & (c - 1):
+        raise ValueError(f"column_conv: rows of {dc} values are not D*C = {d}*{c} "
+                         "with C a power of two")
+    if (d < 1 or pad_z < 0 or d + 2 * pad_z > _MAX_D or not 0 < k2 <= _MAX_K2
+            or not 0 < kz * k2 <= _MAX_TAPS or rb_idx.shape[1] % k2):
+        raise ValueError(f"column_conv: D {d} + 2*pad_z {pad_z} (max {_MAX_D}), "
+                         f"kernel {kernel} (K2 max {_MAX_K2}, kz*K2 max {_MAX_TAPS}) "
+                         f"or rb_idx {tuple(rb_idx.shape)} unsupported")
+    if rb_idx.dtype != torch.int32:
+        raise TypeError("column_conv: rb_idx must be int32")
+    if weight.dim() != 2 or weight.shape[0] != kz * k2 * c:
+        raise ValueError(f"column_conv: weight {tuple(weight.shape)} is not "
+                         f"({kz}*{k2}*{c}, Cout)")
+    cout = weight.shape[1]
+    if cout not in _COUTS:
+        raise ValueError(f"column_conv: Cout {cout} not in {_COUTS}")
+    d_out = csp.conv_out_depth(d, kz, stride_z, pad_z)
+    if stride_z < 1 or pad_z < 0 or d_out < 1:
+        raise ValueError(f"column_conv: stride_z {stride_z}, pad_z {pad_z} give "
+                         f"D_out {d_out}")
+    if not (col_feats.is_contiguous() and rb_idx.is_contiguous()):
+        raise ValueError("column_conv: col_feats and rb_idx must be contiguous")
+    m = rb_idx.shape[1] // k2
+    x = col_feats.to(compute_dtype)
+    w = weight.to(compute_dtype).contiguous()
+    out = torch.empty((b, m, d_out * cout), dtype=torch.float32,
+                      device=col_feats.device)
+    if b == 0 or m == 0:
+        return out
+    with torch.cuda.device(col_feats.device):
+        kernels.launch(
+            "column_conv", _ARGTYPES,
+            x.data_ptr(), rb_idx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            b, n, m, k2, d, c, cout, kz, stride_z, pad_z,
+            _DTYPES[compute_dtype], torch.cuda.current_stream().cuda_stream)
+    return out

@@ -1,13 +1,27 @@
-"""Z-window sparse conv: wrapper of the CUDA kernel ``csrc/zwin_conv.cu``.
+"""Z-window sparse conv: wrappers of the CUDA kernels ``csrc/zwin_conv.cu``
+and ``csrc/zwin_align_gemm.cu``.
 
-Port of the TPU kernel ``vision3d_tpu/ops/pallas/zwin_conv.py:114``
-(``zwin_conv_gemm_v2`` behind ``conv_zwin_apply_pallas2``). The TPU wrapper
+``zwin_conv`` is the port of the TPU kernel
+``vision3d_tpu/ops/pallas/zwin_conv.py:114`` (``zwin_conv_gemm_v2`` behind
+``conv_zwin_apply_pallas2``), the one the model runs. The TPU wrapper
 gathered the z-window rows and built the tap masks in XLA before the
 kernel; the CUDA kernel reads ``(feats, start, pattern)`` itself.
 
-On a CPU tensor the wrapper runs the plain PyTorch version
-(``ops.sparse.conv_zwin_apply``); on a CUDA tensor it launches the kernel
-or raises. ``LAUNCHES["zwin_conv"]`` counts kernel launches.
+``zwin_align_gemm_v1`` / ``_v3`` are the ports of the two other TPU
+variants, ``zwin_conv_gemm`` (``zwin_conv.py:55``) and
+``zwin_conv_gemm_v3`` (``zwin_conv.py:238``): they take ALREADY GATHERED
+k2-major windows plus tap masks, v1 as ``(dz, j)`` pairs, v3 as shift
+masks. ``conv_zwin_apply_v1`` / ``_v3`` gather the windows and build the
+masks in plain PyTorch (XLA code in the JAX package) and then call them,
+with the contract of ``conv_zwin_apply_pallas`` / ``conv_zwin_apply_pallas3``.
+No model path runs them; ``tools/microbench_torch_zwin.py`` times all
+three variants on one set of rulebooks.
+
+On a CPU tensor each wrapper runs its plain PyTorch version
+(``ops.sparse.conv_zwin_apply``, ``zwin_align_gemm_v1_plain``,
+``zwin_align_gemm_v3_plain``); on a CUDA tensor it launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches under ``zwin_conv``,
+``zwin_align_v1`` and ``zwin_align_v3``.
 """
 
 import ctypes
@@ -69,3 +83,186 @@ def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
             out.data_ptr(), b, n, m, c, cout, _DTYPES[compute_dtype],
             torch.cuda.current_stream().cuda_stream)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The two variants on gathered windows (kernel (3, 3, 3) only).
+# ---------------------------------------------------------------------------
+
+_KZ, _K2 = 3, 9
+PAIRS = [(dz, j) for dz in range(_KZ) for j in range(dz + 1)]
+_ALIGN_COUTS = (16, 32, 64)
+_ALIGN_ARGTYPES = [_VP] * 4 + [_CI] * 5 + [_VP]
+
+
+def gather_windows_km(feats, start, compute_dtype):
+    """The window gather of ``conv_zwin_apply_pallas`` / ``_pallas3``:
+    feats (B, N, C), start (B, M*9) site-major -> g_km (B, 9, M, 3*C) in
+    the compute dtype, window (b, k2, m) holding rows start .. start+2
+    (rows >= N read as zero)."""
+    b, n, c = feats.shape
+    m = start.shape[1] // _K2
+    fz = torch.cat([feats, feats.new_zeros((b, _KZ, c))], dim=1).to(compute_dtype)
+    zwin = torch.cat([fz[:, dz: n + 1 + dz] for dz in range(_KZ)], dim=-1)
+    start_km = start.reshape(b, m, _K2).transpose(1, 2).reshape(b, _K2 * m).long()
+    g = torch.gather(zwin, 1, start_km[..., None].expand(b, _K2 * m, _KZ * c))
+    return g.reshape(b, _K2, m, _KZ * c)
+
+
+def _tap_candidates(pat):
+    """Per tap dz: (bit dz of the pattern, the candidate index it reads)."""
+    bits = [(pat >> dz) & 1 for dz in range(_KZ)]
+    jof = [sum(bits[:dz]) if dz else torch.zeros_like(pat) for dz in range(_KZ)]
+    return bits, jof
+
+
+def pair_masks(pattern, m, dtype):
+    """v1 masks (B, 9, M, 6): entry (dz, j) set iff bit dz of the window's
+    pattern is set and j lower bits are (``zwin_conv.py:366-374``)."""
+    b = pattern.shape[0]
+    pat = pattern.reshape(b, m, _K2).transpose(1, 2)
+    bits, jof = _tap_candidates(pat)
+    return torch.stack([(bits[dz] > 0) & (jof[dz] == j) for dz, j in PAIRS],
+                       dim=-1).to(dtype).contiguous()
+
+
+def shift_masks(pattern, m, dtype):
+    """v3 masks (3, B, M, 27): entry [s, b, m, k2*3 + j] set iff candidate j
+    feeds tap dz = j + s (``zwin_conv.py:329-342``)."""
+    b = pattern.shape[0]
+    pat = pattern.reshape(b, m, _K2)
+    bits, jof = _tap_candidates(pat)
+    msks = []
+    for s in range(_KZ):
+        cols = [(bits[j + s] > 0) & (jof[j + s] == j) if j + s < _KZ
+                else torch.zeros_like(pat, dtype=torch.bool) for j in range(_KZ)]
+        msks.append(torch.stack(cols, dim=-1).reshape(b, m, _K2 * _KZ))
+    return torch.stack(msks, dim=0).to(dtype).contiguous()
+
+
+def _w_k2_major(weight, c):
+    """(27*C, Cout) with taps (dz, k2)-major -> (9, 3, C, Cout) float32."""
+    return weight.float().reshape(_KZ, _K2, c, -1).transpose(0, 1)
+
+
+def zwin_align_gemm_v1_plain(g_km, masks, weight):
+    """Plain version of ``zwin_align_gemm_v1``, as the TPU kernel writes it
+    (``zwin_conv.py:35``): per (k2, dz) the mask-weighted sum over the
+    candidates j <= dz, rounded to the inputs' dtype, then one GEMM."""
+    b, k2, m, kzc = g_km.shape
+    c = kzc // _KZ
+    g = g_km.float().reshape(b, k2, m, _KZ, c)
+    mk = masks.float()
+    cols = []
+    for dz in range(_KZ):
+        t = sum(g[..., j, :] * mk[..., PAIRS.index((dz, j)), None]
+                for j in range(dz + 1))
+        cols.append(t)
+    x = torch.stack(cols, dim=3).to(g_km.dtype).float()        # (B, K2, M, dz, C)
+    x = x.permute(0, 2, 1, 3, 4).reshape(b * m, k2 * _KZ * c)
+    w = _w_k2_major(weight.to(g_km.dtype), c).reshape(k2 * _KZ * c, -1)
+    return (x @ w).reshape(b, m, -1)
+
+
+def zwin_align_gemm_v3_plain(g_km, msk, weight):
+    """Plain version of ``zwin_align_gemm_v3``, as the TPU kernel writes it
+    (``zwin_conv.py:215``) without its lane padding: per shift s the
+    windows times their shift mask, against the weights with candidate j
+    routed to tap j + s; the three products summed."""
+    b, k2, m, kzc = g_km.shape
+    c = kzc // _KZ
+    x = g_km.float().reshape(b, k2, m, _KZ, c).permute(0, 2, 1, 3, 4)
+    w = _w_k2_major(weight.to(g_km.dtype), c)                  # (K2, dz, C, Cout)
+    out = 0.0
+    for s in range(_KZ):
+        ms = msk[s].float().reshape(b, m, k2, _KZ, 1)
+        wshift = torch.zeros_like(w)
+        wshift[:, : _KZ - s] = w[:, s:]                        # row j <- tap j + s
+        out = out + (x * ms).reshape(b * m, k2 * kzc) @ wshift.reshape(k2 * kzc, -1)
+    return out.reshape(b, m, -1)
+
+
+def _zwin_align(name, plain, g_km, masks, weight, mask_shape):
+    if g_km.device.type == "cpu":
+        return plain(g_km, masks, weight)
+    if g_km.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {g_km.device}")
+    if g_km.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {g_km.dtype} unsupported")
+    for what, t in (("masks", masks), ("weight", weight)):
+        if t.device != g_km.device:
+            raise ValueError(f"{name}: {what} on {t.device}, g_km on {g_km.device}")
+    if masks.dtype != g_km.dtype:
+        raise TypeError(f"{name}: masks are {masks.dtype}, g_km is {g_km.dtype}")
+    if g_km.dim() != 4 or g_km.shape[1] != _K2 or g_km.shape[3] % _KZ:
+        raise ValueError(f"{name}: g_km {tuple(g_km.shape)} is not (B, 9, M, 3*C)")
+    b, _, m, kzc = g_km.shape
+    c = kzc // _KZ
+    if tuple(masks.shape) != mask_shape(b, m):
+        raise ValueError(f"{name}: masks {tuple(masks.shape)} are not {mask_shape(b, m)}")
+    if weight.dim() != 2 or weight.shape[0] != _KZ * _K2 * c:
+        raise ValueError(f"{name}: weight {tuple(weight.shape)} is not (27*{c}, Cout)")
+    cout = weight.shape[1]
+    if cout not in _ALIGN_COUTS:
+        raise ValueError(f"{name}: Cout {cout} not in {_ALIGN_COUTS}")
+    if not (g_km.is_contiguous() and masks.is_contiguous()):
+        raise ValueError(f"{name}: g_km and masks must be contiguous")
+    w = weight.to(g_km.dtype).contiguous()
+    out = torch.empty((b, m, cout), dtype=torch.float32, device=g_km.device)
+    if b == 0 or m == 0:
+        return out
+    with torch.cuda.device(g_km.device):
+        kernels.launch(
+            name, _ALIGN_ARGTYPES,
+            g_km.data_ptr(), masks.data_ptr(), w.data_ptr(), out.data_ptr(),
+            b, m, c, cout, _DTYPES[g_km.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def zwin_align_gemm_v1(g_km, masks, weight):
+    """g_km (B, 9, M, 3*C) gathered windows, k2-major, float32 or
+    bfloat16; masks (B, 9, M, 6) of the same dtype, (dz, j) pairs; weight
+    (27*C, Cout), rounded to that dtype. Returns (B, M, Cout) f32."""
+    return _zwin_align("zwin_align_v1", zwin_align_gemm_v1_plain, g_km, masks,
+                       weight, lambda b, m: (b, _K2, m, len(PAIRS)))
+
+
+def zwin_align_gemm_v3(g_km, msk, weight):
+    """As ``zwin_align_gemm_v1`` with shift masks msk (3, B, M, 27)."""
+    return _zwin_align("zwin_align_v3", zwin_align_gemm_v3_plain, g_km, msk,
+                       weight, lambda b, m: (_KZ, b, m, _K2 * _KZ))
+
+
+def _check_zwin_args(name, feats, start, pattern, kernel, compute_dtype):
+    if tuple(kernel) != (_KZ, 3, 3):
+        raise ValueError(f"{name} supports kernel (3, 3, 3) only, got {kernel}")
+    if compute_dtype not in _DTYPES:
+        raise TypeError(f"{name}: compute_dtype {compute_dtype} unsupported")
+    if (feats.dim() != 3 or start.shape != pattern.shape or start.dim() != 2
+            or start.shape[0] != feats.shape[0] or start.shape[1] % _K2):
+        raise ValueError(f"{name}: need feats (B, N, C) and start, pattern (B, M*9)")
+
+
+def conv_zwin_apply_v1(feats, start, pattern, weight, kernel=(3, 3, 3),
+                       compute_dtype=torch.bfloat16):
+    """The contract of ``zwin_conv`` through the v1 kernel: window gather
+    and pair masks in plain PyTorch, then ``zwin_align_gemm_v1``
+    (``conv_zwin_apply_pallas``, ``zwin_conv.py:347``)."""
+    _check_zwin_args("conv_zwin_apply_v1", feats, start, pattern, kernel,
+                     compute_dtype)
+    m = start.shape[1] // _K2
+    return zwin_align_gemm_v1(gather_windows_km(feats, start, compute_dtype),
+                              pair_masks(pattern, m, compute_dtype), weight)
+
+
+def conv_zwin_apply_v3(feats, start, pattern, weight, kernel=(3, 3, 3),
+                       compute_dtype=torch.bfloat16):
+    """The contract of ``zwin_conv`` through the v3 kernel: window gather
+    and shift masks in plain PyTorch, then ``zwin_align_gemm_v3``
+    (``conv_zwin_apply_pallas3``, ``zwin_conv.py:302``)."""
+    _check_zwin_args("conv_zwin_apply_v3", feats, start, pattern, kernel,
+                     compute_dtype)
+    m = start.shape[1] // _K2
+    return zwin_align_gemm_v3(gather_windows_km(feats, start, compute_dtype),
+                              shift_masks(pattern, m, compute_dtype), weight)
