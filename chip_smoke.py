@@ -18,7 +18,10 @@ Phases, each printing lines before the last:
   2b. the training path's kernels, gather_gemm (every sparse conv, forward
      and dX) and gather_rows (the dW regather), against their plain
      versions at every shape a training step gives them, on the real
-     rulebooks of the batch; gather_rows also beside torch.index_select;
+     rulebooks of the batch: gather_gemm on each of its routes (in bf16 the
+     tensor-core route where the widths allow it and the FMA route at
+     every shape, in float32 the FMA route), each shape's route printed;
+     gather_rows also beside torch.index_select;
   2c. column_conv against its plain version at the nine shapes of the
      column backend, on the real column rulebooks and active sites of the
      batch, and a broken copy of the result that must fail the same check;
@@ -33,12 +36,14 @@ Phases, each printing lines before the last:
      card and on the CPU (plain versions), float32 with TF32 off, same
      detections;
   5. training at full geometry, bf16: train steps on one synthetic batch
-     from a fresh seeded init: launch counts of a step, capacity counters 0,
+     from a fresh seeded init: launch counts of a step (27 gather_gemm, 26
+     of them on the tensor-core route, 14 gather_rows), capacity counters 0,
      finite loss / gradients / parameters, loss decreasing, p50 step time,
      peak memory;
   6. a small-geometry training reference: one loss.backward() on the card
-     (kernels) and on the CPU (plain versions), float32 with TF32 off:
-     loss to 1e-5 relative, every gradient to 1e-4 of its tensor's max.
+     (kernels; float32, so every gather_gemm launch on the FMA route) and on
+     the CPU (plain versions), float32 with TF32 off: loss to 1e-5
+     relative, every gradient to 1e-4 of its tensor's max.
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -69,7 +74,7 @@ from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops import zwin_conv as zw
 from vision3d_tpu_torch.ops.column_conv import column_conv
-from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
+from vision3d_tpu_torch.ops.gather_gemm import ROUTES, gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 from vision3d_tpu_torch.synthetic import kitti_like_batch, kitti_like_train_batch
 from vision3d_tpu_torch.training.train import create_train_state, make_train_step
@@ -617,9 +622,21 @@ def _bound(nbytes, flops, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def gather_gemm_bound_ms(b, n, m, c, cout, kd, hits, dtype):
+    """Least time for one gather-GEMM: each input (feats, rulebook, weights)
+    read once, the f32 output written once, 2*C*Cout flops per hit."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = (b * n * c * esize + b * m * kd * 4 + kd * c * cout * esize
+              + b * m * cout * 4)
+    return _bound(nbytes, 2 * c * cout * hits, dtype)
+
+
 def train_kernel_phase(cfg, points, num, dev):
     """Phase 2b: B2 and B4/B5 against their plain versions at every shape
-    of a training step. Returns (gather_gemm rows, gather_rows rows)."""
+    of a training step; B2 on each route the widths allow (in bf16 the
+    tensor-core route where ``route_of`` picks it, and the FMA route at
+    every shape; in float32 the FMA route). Returns (gather_gemm rows,
+    gather_rows rows)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     convs, regathers = train_path_layers(cfg, points, num)
     gg_rows, gr_rows = [], []
@@ -630,34 +647,38 @@ def train_kernel_phase(cfg, points, num, dev):
         w = torch.randn((kd * c, cout), generator=gen, device=dev) / (kd * c) ** 0.5
         hits = int((rb < n).sum())
         row = {"shape": name, "launches_per_step": count, "B": b, "N": n, "M": m,
-               "C": c, "Cout": cout, "K": kd, "hits": hits}
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            tag = "bf16" if dtype == torch.bfloat16 else "f32"
-            got = gather_gemm(feats, rb, w, dtype)
+               "C": c, "Cout": cout, "K": kd, "hits": hits,
+               "route": route_of(torch.bfloat16, c, cout)}
+        runs = [("bf16", torch.bfloat16, 2e-2, None), ("f32", torch.float32, 1e-4, None)]
+        if row["route"] != "fma":
+            runs.insert(1, ("bf16_fma", torch.bfloat16, 2e-2, "fma"))
+        for tag, dtype, tol, route in runs:
+            label = f"gather_gemm {name} {tag} ({route or route_of(dtype, c, cout)})"
+            got = gather_gemm(feats, rb, w, dtype, route=route)
             torch.cuda.synchronize()
             ref = sp.conv_rulebook_apply(feats, rb, w, dtype)
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max())
-            check(torch.isfinite(got).all().item(), f"gather_gemm {name} {tag}: non-finite")
-            check(scale > 0, f"gather_gemm {name} {tag}: the plain version is all zero")
-            ok = bool(((got - ref).abs() <= tol * scale + tol * ref.abs()).all())
-            check(ok, f"gather_gemm {name} {tag}: kernel disagrees with plain "
-                      f"version (max abs err {err}, scale {scale})")
+            check(torch.isfinite(got).all().item(), f"{label}: non-finite")
+            check(scale > 0, f"{label}: the plain version is all zero")
+            check(agrees(got, ref, tol), f"{label}: kernel disagrees with plain "
+                                         f"version (max abs err {err}, scale {scale})")
             del got, ref
-            ms = cuda_ms(lambda: gather_gemm(feats, rb, w, dtype), reps=10)
-            plain = cuda_ms(lambda: sp.conv_rulebook_apply(feats, rb, w, dtype),
-                            reps=5, warmup=1)
-            esize = torch.finfo(dtype).bits // 8
-            nbytes = (b * n * c * esize + rb.numel() * 4 + kd * c * cout * esize
-                      + b * m * cout * 4)
-            bound, by = _bound(nbytes, 2 * c * cout * hits, dtype)
+            ms = cuda_ms(lambda: gather_gemm(feats, rb, w, dtype, route=route), reps=10)
             row.update({f"{tag}_max_abs_err": err, f"{tag}_ref_scale": scale,
-                        f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
-                        f"{tag}_bound_ms": bound, f"{tag}_bound_by": by})
+                        f"{tag}_ms": ms})
+            if route is None:
+                plain = cuda_ms(lambda: sp.conv_rulebook_apply(feats, rb, w, dtype),
+                                reps=5, warmup=1)
+                bound, by = gather_gemm_bound_ms(b, n, m, c, cout, kd, hits, dtype)
+                row.update({f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
+                            f"{tag}_bound_by": by})
+        row.setdefault("bf16_fma_ms", row["bf16_ms"])
         print(f"gather_gemm {name} x{count}: B={b} N={n} M={m} K={kd} hits={hits} "
-              f"bf16 {row['bf16_ms']:.4f} ms (plain {row['bf16_plain_ms']:.3f}, "
+              f"bf16 {row['route']} {row['bf16_ms']:.4f} ms (fma "
+              f"{row['bf16_fma_ms']:.4f}, plain {row['bf16_plain_ms']:.3f}, "
               f"bound {row['bf16_bound_ms']:.4f} {row['bf16_bound_by']}, "
-              f"err {row['bf16_max_abs_err']:.3g}) | f32 {row['f32_ms']:.4f} ms "
+              f"err {row['bf16_max_abs_err']:.3g}) | f32 fma {row['f32_ms']:.4f} ms "
               f"(plain {row['f32_plain_ms']:.3f}, err {row['f32_max_abs_err']:.3g})",
               flush=True)
         gg_rows.append(row)
@@ -830,7 +851,8 @@ def training_reference_phase(dev):
                          {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
                          int(targets.M_reg.sum()), dict(zw.LAUNCHES)))
     (gl, gdiag, ggrads, gpos, glaunch), (cl, cdiag, cgrads, cpos, claunch) = runs
-    check(glaunch["gather_gemm"] == 27 and glaunch["gather_rows"] == 14,
+    check(glaunch["gather_gemm"] == 27 and glaunch["gather_rows"] == 14
+          and glaunch["gather_gemm.mma"] == 0 and glaunch["gather_gemm.fma"] == 27,
           f"card launches {glaunch}")
     check(sum(claunch.values()) == 0, f"CPU run launched kernels: {claunch}")
     check(gdiag == cdiag, f"counters differ: card {gdiag} vs CPU {cdiag}")
@@ -912,7 +934,11 @@ def main():
     expected = {"zwin_conv": 0,
                 "gather_gemm": sum(r["launches_per_step"] for r in gg_rows),
                 "gather_rows": sum(r["launches_per_step"] for r in gr_rows)}
-    check(expected["gather_gemm"] == 27 and expected["gather_rows"] == 14,
+    for route in ROUTES:
+        expected[f"gather_gemm.{route}"] = sum(r["launches_per_step"] for r in gg_rows
+                                               if r["route"] == route)
+    check(expected["gather_gemm"] == 27 and expected["gather_rows"] == 14
+          and expected["gather_gemm.mma"] == 26,
           f"expected launches per training step {expected}")
     train = training_phase(cfg, dev, expected)
     print(f"train: batch {BATCH} x {POINTS} points, {TRAIN_TIMED} timed steps, p50 "
@@ -957,11 +983,15 @@ def main():
          "replaces": "vision3d_tpu/ops/pallas/sparse_conv.py:52",
          "launches": train["launches"]["gather_gemm"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gg_rows),
+         "launches_by_route": {r: train["launches"][f"gather_gemm.{r}"] for r in ROUTES},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies
          "library_ms": None,
-         "shapes": brief(gg_rows, "launches_per_step", ("M", "K", "hits") + times)},
+         # every launch on the float32-FMA route (the design before the mma route)
+         "ms_fma_route_only": per(gg_rows, "bf16_fma_ms"),
+         "shapes": brief(gg_rows, "launches_per_step",
+                         ("route", "M", "K", "hits", "bf16_fma_ms") + times)},
         {"name": "gather_rows", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/gather_rows.cu",
          "replaces": "vision3d_tpu/ops/pallas/gather.py:34 and "

@@ -37,23 +37,29 @@ GOLD = ROOT / "tests" / "goldens"
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port (and chip_smoke.py) must load no
-    jax, flax, optax, orbax or vision3d_tpu module."""
+    """Importing every module of the port (and chip_smoke.py and the GPU
+    tools tools/microbench_torch_*.py, tools/profile_torch_*.py) must load
+    no jax, flax, optax, orbax or vision3d_tpu module."""
     mods = sorted(
         "vision3d_tpu_torch." + ".".join(p.relative_to(ROOT / "vision3d_tpu_torch")
                                          .with_suffix("").parts)
         for p in (ROOT / "vision3d_tpu_torch").rglob("*.py")
         if p.name != "__init__.py")
+    tools = sorted(str(p) for pat in ("microbench_torch_*.py", "profile_torch_*.py")
+                   for p in (ROOT / "tools").glob(pat))
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r} + ['chip_smoke']: importlib.import_module(m)\n"
+        f"for i, path in enumerate({tools!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'tool{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vision3d_tpu'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 25
+    assert len(mods) >= 25 and len(tools) >= 4
     for new in ("core.targets", "models.losses", "ops.gather_gemm", "ops.gather_rows",
                 "training.train", "training.checkpoint", "training.metrics",
                 "ops.column_sparse", "ops.column_conv"):

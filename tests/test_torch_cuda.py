@@ -14,7 +14,7 @@ from vision3d_tpu_torch.ops import column_sparse as tcsp
 from vision3d_tpu_torch.ops import sparse as tsp
 from vision3d_tpu_torch.ops import zwin_conv as tzw
 from vision3d_tpu_torch.ops.column_conv import column_conv
-from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
+from vision3d_tpu_torch.ops.gather_gemm import gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 
 pytestmark = pytest.mark.cuda
@@ -76,30 +76,107 @@ def _gg_case(c, cout, kd, seed, dev, b=2, n=300, m=700):
     return [torch.from_numpy(a).to(dev) for a in (feats, rb, w)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,cout,kd", [(4, 16, 27), (16, 16, 27), (16, 32, 27),
-                                       (32, 16, 27), (64, 32, 27), (64, 64, 27),
-                                       (64, 64, 3), (16, 4, 27)])
-def test_gather_gemm_kernel_matches_plain(c, cout, kd, dtype, cuda_device):
-    """Forward and dX widths of the training path, K = 27 and 3. Both sum
-    exact products of compute-dtype inputs in float32, in other orders:
-    1e-5 of the output scale."""
-    feats, rb, w = _gg_case(c, cout, kd, c + cout, cuda_device)
-    before = tzw.LAUNCHES["gather_gemm"]
-    got = gather_gemm(feats, rb, w, dtype)
+def _gg_counts():
+    return [tzw.LAUNCHES[k] for k in ("gather_gemm", "gather_gemm.fma", "gather_gemm.mma")]
+
+
+def _gg_check(feats, rb, w, dtype, route=None):
+    """One launch against the plain version, 1e-5 of the output scale,
+    counted once in all and once on its route."""
+    route_used = route or route_of(dtype, feats.shape[2], w.shape[1])
+    before = _gg_counts()
+    got = gather_gemm(feats, rb, w, dtype, route=route)
     torch.cuda.synchronize()
-    assert tzw.LAUNCHES["gather_gemm"] == before + 1
+    after = _gg_counts()
+    assert after[0] == before[0] + 1
+    assert after[1:] == [before[1] + (route_used == "fma"), before[2] + (route_used == "mma")]
     ref = tsp.conv_rulebook_apply(feats, rb, w, dtype)
     torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    return got
 
 
-def test_gather_gemm_kernel_treats_out_of_range_rows_as_misses(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,kd", [(4, 16, 27), (16, 16, 27), (16, 32, 27),
+                                       (32, 16, 27), (32, 32, 27), (32, 64, 27),
+                                       (64, 32, 27), (64, 64, 27), (64, 64, 3),
+                                       (64, 128, 27), (128, 64, 27), (16, 4, 27),
+                                       (16, 8, 27), (80, 16, 3)])
+def test_gather_gemm_kernel_matches_plain(c, cout, kd, dtype, cuda_device):
+    """Every forward and dX width of the training path (K = 27 and 3), 64x128
+    and 128x64, Cout 8 and a C of two channel chunks (80), on the route the
+    rule picks: in bf16 the tensor-core route for all but C = 4 and Cout = 4.
+    Both sum exact products of compute-dtype inputs in float32, in other
+    orders: 1e-5 of the output scale. B*M = 1400 is no multiple of the
+    64-site tile, and the tile of sites 640-703 spans the two frames."""
+    feats, rb, w = _gg_case(c, cout, kd, c + cout, cuda_device)
+    _gg_check(feats, rb, w, dtype)
+
+
+@pytest.mark.parametrize("c,cout", [(16, 32), (64, 64)])
+def test_gather_gemm_fma_route_in_bf16(c, cout, cuda_device):
+    """The float32-FMA design, forced in bf16 where the rule picks the
+    tensor cores, agrees with the plain version and is counted on its own
+    route; the tensor-core route refuses float32 and C = 4."""
+    feats, rb, w = _gg_case(c, cout, 27, 11, cuda_device)
+    _gg_check(feats, rb, w, torch.bfloat16, route="fma")
+    before = _gg_counts()
+    with pytest.raises(ValueError):
+        gather_gemm(feats, rb, w, torch.float32, route="mma")
+    with pytest.raises(ValueError):
+        gather_gemm(feats[..., :4].contiguous(), rb, w[: 27 * 4], torch.bfloat16,
+                    route="mma")
+    assert _gg_counts() == before
+
+
+def test_gather_gemm_sparse_tiles(cuda_device):
+    """Tiles of 64 sites whose tap lists are extreme: sites 128-255 (two
+    whole tiles) miss every tap and come out exactly zero; in the tile of
+    sites 256-319 tap 5 is hit by one site only and every other tap by
+    none; frame 1 has hits in its first 3 sites only, in the tile of sites
+    384-447 that also holds the end of frame 0 (M = 410)."""
+    rng = np.random.default_rng(5)
+    b, n, m, c, cout, kd = 2, 50, 410, 32, 64, 27
+    feats = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((rng.normal(size=(kd * c, cout)) / 30).astype(np.float32)).to(
+        cuda_device)
+    rb = rng.integers(0, n + 1, (b, m, kd)).astype(np.int32)
+    rb[0, 128:384] = n
+    rb[0, 300, 5] = 17
+    rb[1, 3:] = n
+    rb = torch.from_numpy(rb.reshape(b, m * kd)).to(cuda_device)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = _gg_check(feats, rb, w, dtype)
+        assert not got[0, 128:300].any() and not got[0, 301:384].any()
+        assert not got[1, 3:].any()
+        assert got[0, 300].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_gemm_kernel_treats_out_of_range_rows_as_misses(dtype, cuda_device):
+    """Negative rows and rows > N give bit for bit what rows = N give, on
+    either route."""
     feats, rb, w = _gg_case(16, 32, 27, 9, cuda_device)
     n = feats.shape[1]
-    ref = gather_gemm(feats, rb, w)
+    ref = gather_gemm(feats, rb, w, dtype)
     wild = torch.where(rb == n, torch.full_like(rb, -1), rb)
     wild[0, ::7] = torch.where(wild[0, ::7] < 0, n + 5, wild[0, ::7])
-    torch.testing.assert_close(gather_gemm(feats, wild, w), ref, atol=0, rtol=0)
+    wild[1, ::5] = torch.where(wild[1, ::5] < 0, 2 ** 31 - 1, wild[1, ::5])
+    wild[1, 1::5] = torch.where(wild[1, 1::5] < 0, -(2 ** 31), wild[1, 1::5])
+    torch.testing.assert_close(gather_gemm(feats, wild, w, dtype), ref, atol=0, rtol=0)
+
+
+def test_gather_gemm_unaligned_bf16_view(cuda_device):
+    """A bf16 ``feats`` view whose storage offset is not 16-byte aligned
+    (what ``cp.async`` needs) is copied by the wrapper, not read askew: the
+    result equals the aligned input's bit for bit."""
+    feats, rb, w = _gg_case(32, 32, 27, 13, cuda_device)
+    x = feats.bfloat16()
+    odd = torch.cat([x.new_zeros((1,)), x.reshape(-1)])[1:].reshape(x.shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    ref = gather_gemm(x, rb, w, torch.bfloat16)
+    got = gather_gemm(odd, rb, w, torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def test_gather_gemm_kernel_rejects_bad_input(cuda_device):
@@ -112,6 +189,8 @@ def test_gather_gemm_kernel_rejects_bad_input(cuda_device):
         gather_gemm(feats, rb, w[:-1])
     with pytest.raises(ValueError):
         gather_gemm(feats, rb, w[:, :24])          # Cout 24 has no instance
+    with pytest.raises(ValueError):
+        gather_gemm(feats, rb, w, torch.bfloat16, route="wgmma")
     with pytest.raises(ValueError):
         gather_gemm(feats, rb.cpu(), w)
     with pytest.raises(ValueError):

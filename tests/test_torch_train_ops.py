@@ -14,7 +14,7 @@ from vision3d_tpu.ops import sparse as jsp
 from vision3d_tpu.ops.pallas.gather import gather_rows as j_gather_rows
 from vision3d_tpu.ops.pallas.sparse_conv import fused_gather_gemm
 from vision3d_tpu_torch.ops import sparse as tsp
-from vision3d_tpu_torch.ops.gather_gemm import gather_gemm
+from vision3d_tpu_torch.ops.gather_gemm import gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows
 
 from test_torch_sparse import STAGES, _tiny_sparse
@@ -158,6 +158,17 @@ def test_conv_rulebook_apply_matches_jax(c, cout, kd, dtype, tol):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     scale = float(np.abs(ref).max())
     np.testing.assert_allclose(got.numpy(), ref, atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,c,cout,route", [
+    (torch.bfloat16, 16, 16, "mma"), (torch.bfloat16, 64, 128, "mma"),
+    (torch.bfloat16, 128, 8, "mma"), (torch.bfloat16, 4, 16, "fma"),
+    (torch.bfloat16, 16, 4, "fma"), (torch.bfloat16, 24, 16, "fma"),
+    (torch.float32, 64, 64, "fma"), (torch.float32, 16, 16, "fma")])
+def test_gather_gemm_route_rule(dtype, c, cout, route):
+    """The card's kernel for a call follows from (dtype, C, Cout) alone:
+    tensor cores for bf16 with C % 16 == 0 and Cout % 8 == 0, FMA else."""
+    assert route_of(dtype, c, cout) == route
 
 
 def test_conv_rulebook_apply_matches_tpu_kernel_interpreted():

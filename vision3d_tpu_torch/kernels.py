@@ -8,7 +8,9 @@ under this package at first use (the hash of the source keeps a stale
 library from being loaded) and bound with ``ctypes``. Nothing is built
 when a module is imported; ``build()`` compiles several sources at once,
 one ``nvcc`` process each. ``launch()`` calls a kernel's entry point and
-raises on a CUDA error; ``LAUNCHES`` counts the launches of each kernel.
+raises on a CUDA error; ``LAUNCHES`` counts the launches of each kernel,
+and of each route ``<name>.<route>`` of a kernel with several (``ROUTES``:
+one entry point that takes the route as an argument).
 """
 
 import ctypes
@@ -27,7 +29,11 @@ SOURCES = {"zwin_align_v1": "zwin_align_gemm", "zwin_align_v3": "zwin_align_gemm
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
+# route names in the order of the entry point's route argument
+ROUTES = {"gather_gemm": ("fma", "mma")}
+
 LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES.update({f"{name}.{r}": 0 for name, routes in ROUTES.items() for r in routes})
 
 _loaded = {}
 
@@ -93,9 +99,10 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args):
+def launch(name: str, argtypes, *args, route=None):
     """Call ``<name>_launch(*args)`` (a C function that returns the
-    launch's cudaError_t), raise if the launch was refused, and count it."""
+    launch's cudaError_t), raise if the launch was refused, and count it,
+    under ``<name>.<route>`` too when a route is given."""
     lib = load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
@@ -106,3 +113,5 @@ def launch(name: str, argtypes, *args):
         err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(f"{name} launch failed: " + err_fn(err).decode())
     LAUNCHES[name] += 1
+    if route is not None:
+        LAUNCHES[f"{name}.{route}"] += 1

@@ -1,15 +1,25 @@
-"""Rulebook gather-GEMM: wrapper of the CUDA kernel ``csrc/gather_gemm.cu``.
+"""Rulebook gather-GEMM: wrapper of the CUDA kernels ``csrc/gather_gemm.cu``.
 
 Port of the TPU kernel ``vision3d_tpu/ops/pallas/sparse_conv.py:52``
 (``fused_gather_gemm``: ``out[n] = concat_k(table[idx[n, k]]) @ W``), the
 compute of every full-tap sparse conv of the training graph, forward and
 dX. The TPU wrapper took one flat table with a zero row for misses; the
-CUDA kernel reads the batched ``(feats, rb)`` itself and treats any row
+CUDA kernels read the batched ``(feats, rb)`` themselves and treat any row
 outside ``[0, N)`` as a miss.
 
+Two routes, picked by ``route_of(compute_dtype, C, Cout)`` and nothing
+else: ``"mma"`` (tensor cores, ``mma.sync`` on tiles of gathered rows
+staged by ``cp.async``) for bfloat16 with ``C % 16 == 0`` and
+``Cout % 8 == 0``; ``"fma"`` (float32 FMA) for float32 and the other
+bfloat16 widths. float32 stays off the tensor cores: the card-vs-CPU
+checks need exact f32 products. One route never stands in for the other:
+a failed launch raises.
+
 On a CPU tensor the wrapper runs the plain PyTorch version
-(``ops.sparse.conv_rulebook_apply``); on a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES["gather_gemm"]`` counts kernel launches.
+(``ops.sparse.conv_rulebook_apply``); on a CUDA tensor it launches a
+kernel or raises. ``LAUNCHES["gather_gemm"]`` counts kernel launches,
+``LAUNCHES["gather_gemm.mma"]`` and ``LAUNCHES["gather_gemm.fma"]`` those
+of each route.
 """
 
 import ctypes
@@ -20,16 +30,34 @@ from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import sparse as sp
 
 LAUNCHES = kernels.LAUNCHES
+ROUTES = kernels.ROUTES["gather_gemm"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COUTS = (4, 8, 16, 32, 64, 128)
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 4 + [_CI] * 7 + [_VP]
+_ARGTYPES = [_VP] * 4 + [_CI] * 8 + [_VP]
 
 
-def gather_gemm(feats, rb, weight, compute_dtype=torch.float32):
+def route_of(compute_dtype, c, cout):
+    """The kernel a call with these widths takes: "mma" for bfloat16 with
+    C % 16 == 0 and Cout % 8 == 0 (the MMA's depth and width), else
+    "fma"."""
+    if compute_dtype == torch.bfloat16 and c % 16 == 0 and cout % 8 == 0:
+        return "mma"
+    return "fma"
+
+
+def _aligned16(t):
+    """``t`` itself if its data starts on a 16-byte boundary (what the mma
+    route's cp.async needs), else a fresh copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def gather_gemm(feats, rb, weight, compute_dtype=torch.float32, route=None):
     """feats (B, N, C); rb (B, M*K) int32 rows with misses = N; weight
     (K*C, Cout). Returns (B, M, Cout) f32. Inputs are rounded to
-    ``compute_dtype`` (float32 or bfloat16); sums are float32."""
+    ``compute_dtype`` (float32 or bfloat16); sums are float32. ``route``
+    (card only) forces a kernel where the comparisons need both; by
+    default ``route_of`` picks it."""
     if feats.device.type == "cpu":
         return sp.conv_rulebook_apply(feats, rb, weight, compute_dtype)
     if feats.device.type != "cuda":
@@ -54,9 +82,16 @@ def gather_gemm(feats, rb, weight, compute_dtype=torch.float32):
         raise ValueError(f"gather_gemm: Cout {cout} not in {_COUTS}")
     if not (feats.is_contiguous() and rb.is_contiguous()):
         raise ValueError("gather_gemm: feats and rb must be contiguous")
+    chosen = route_of(compute_dtype, c, cout)
+    route = chosen if route is None else route
+    if route not in ROUTES or (route == "mma" and chosen != "mma"):
+        raise ValueError(f"gather_gemm: route {route!r} cannot take "
+                         f"{compute_dtype} {c}x{cout}")
     m = rb.shape[1] // k
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
+    if route == "mma":
+        x, w = _aligned16(x), _aligned16(w)
     out = torch.empty((b, m, cout), dtype=torch.float32, device=feats.device)
     if b == 0 or m == 0:
         return out
@@ -64,6 +99,6 @@ def gather_gemm(feats, rb, weight, compute_dtype=torch.float32):
         kernels.launch(
             "gather_gemm", _ARGTYPES,
             x.data_ptr(), rb.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, n, m, k, c, cout, _DTYPES[compute_dtype],
-            torch.cuda.current_stream().cuda_stream)
+            b, n, m, k, c, cout, _DTYPES[compute_dtype], ROUTES.index(route),
+            torch.cuda.current_stream().cuda_stream, route=route)
     return out
