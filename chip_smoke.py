@@ -10,11 +10,14 @@ from a fresh seeded init.
 Needs one CUDA card (exits non-zero without one, printing no result).
 Phases, each printing lines before the last:
   1. build every kernel from csrc/ (one nvcc each, in parallel);
-  2. each kernel vs its plain version at the main path's shapes, bf16
-     (atol 2e-2 * max|ref|, rtol 2e-2) and float32 (1e-4 of the scale),
-     with CUDA-event medians of kernel and plain times; on the same layers
-     the two variants on gathered windows, zwin_align_v1 and zwin_align_v3,
-     against their plain versions and against zwin_conv's output;
+  2. zwin_conv vs its plain version at the main path's shapes on each of
+     its routes (in bf16 the tensor-core route where the widths allow it
+     and the FMA route at every shape, atol 2e-2 * max|ref|, rtol 2e-2; in
+     float32 the FMA route, 1e-4 of the scale), each shape's route
+     printed, with CUDA-event medians of kernel and plain times; on the
+     same layers the two variants on gathered windows, zwin_align_v1 and
+     zwin_align_v3, against their plain versions and against zwin_conv's
+     output;
   2b. the training path's kernels, gather_gemm (every sparse conv, forward
      and dX) and gather_rows (the dW regather), against their plain
      versions at every shape a training step gives them, on the real
@@ -26,15 +29,16 @@ Phases, each printing lines before the last:
      column backend, on the real column rulebooks and active sites of the
      batch, and a broken copy of the result that must fail the same check;
   3. Second.inference end to end at torch's default precision settings:
-     launch counts of the run, capacity counters all 0, finite outputs,
-     p50 batch latency, peak memory;
+     launch counts of the run (6 zwin_conv, 5 of them on the tensor-core
+     route), capacity counters all 0, finite outputs, p50 batch latency,
+     peak memory;
   3b. the same on the column backend (dense_from_stage 2: 6 column_conv
      launches, no zwin_conv; then one forward with dense_from_stage 4: 14),
      its counters held against the plain column plan, its detections
      against the voxel backend's;
   4. a small-geometry reference check, per backend: the same model on the
-     card and on the CPU (plain versions), float32 with TF32 off, same
-     detections;
+     card and on the CPU (plain versions), float32 with TF32 off (every
+     zwin_conv launch on the FMA route), same detections;
   5. training at full geometry, bf16: train steps on one synthetic batch
      from a fresh seeded init: launch counts of a step (27 gather_gemm, 26
      of them on the tensor-core route, 14 gather_rows), capacity counters 0,
@@ -74,7 +78,7 @@ from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops import zwin_conv as zw
 from vision3d_tpu_torch.ops.column_conv import column_conv
-from vision3d_tpu_torch.ops.gather_gemm import ROUTES, gather_gemm, route_of
+from vision3d_tpu_torch.ops.gather_gemm import gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 from vision3d_tpu_torch.synthetic import kitti_like_batch, kitti_like_train_batch
 from vision3d_tpu_torch.training.train import create_train_state, make_train_step
@@ -86,12 +90,14 @@ BATCH, POINTS = 8, 18000
 STEPS_PER_EPOCH = 928         # 3712 KITTI train frames / 4, as bench_train.py
 TRAIN_WARMUP, TRAIN_TIMED = 3, 6
 # Column against voxel backend, bf16, same batch and weights (phase 3b).
-# Both sparse kernels sum a conv's taps in float32 in the same (k2, dz, c)
-# order and the backends share every other op, so on the card the two came
-# out equal (410 detections each, all paired, box and score deltas 0.0).
-# The gate leaves the room that another sum order takes: the column forward
-# at dense_from_stage 4 against 2 (cuDNN sums stages 2-3 otherwise) moved
-# boxes by 0.069 m, scores by 0.0032 and 3 of 412 detections (PERF.md).
+# The backends share every op but the sparse convs, whose kernels sum a
+# conv's taps in float32 in other orders (B1's tensor-core route by hit tap
+# and 16-channel step, B3 by (k2, dz, c)): on the card 410 detections each,
+# 1 unpaired on either side, boxes within 0.0059 m, scores within 0.0017
+# (PERF.md). The gate leaves the room that another sum order takes: the
+# column forward at dense_from_stage 4 against 2 (cuDNN sums stages 2-3
+# otherwise) moved boxes by 0.069 m, scores by 0.0032 and 3 of 412
+# detections.
 BACKENDS_MAX_UNMATCHED = 0.02     # share of detections with no partner within 0.5 m
 BACKENDS_MAX_BOX, BACKENDS_MAX_SCORE = 0.1, 0.02
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet peaks
@@ -240,8 +246,10 @@ def align_variants_path(layers, dev):
 
 
 def kernel_phase(layers, dev):
-    """Phase 2: B1 against its plain version at every path shape, and B6
-    and B7 on the same layers."""
+    """Phase 2: B1 against its plain version at every path shape, on each
+    route the widths allow (in bf16 the tensor-core route where
+    ``route_of`` picks it and the FMA route at every shape; in float32
+    the FMA route), and B6 and B7 on the same layers."""
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = []
     for name, count, c, cout, n, start, pattern in layers:
@@ -249,37 +257,46 @@ def kernel_phase(layers, dev):
         feats = torch.randn((b, n, c), generator=gen, device=dev)
         w = torch.randn((27 * c, cout), generator=gen, device=dev) / (27 * c) ** 0.5
         row = {"shape": name, "launches_per_forward": count, "B": b, "N": n,
-               "M": start.shape[1] // 9, "C": c, "Cout": cout}
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            tag = "bf16" if dtype == torch.bfloat16 else "f32"
-            got = zw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype)
+               "M": start.shape[1] // 9, "C": c, "Cout": cout,
+               "route": route_of(torch.bfloat16, c, cout)}
+        runs = [("bf16", torch.bfloat16, 2e-2, None), ("f32", torch.float32, 1e-4, None)]
+        if row["route"] != "fma":
+            runs.insert(1, ("bf16_fma", torch.bfloat16, 2e-2, "fma"))
+        for tag, dtype, tol, route in runs:
+            label = f"zwin_conv {name} {tag} ({route or route_of(dtype, c, cout)})"
+            got = zw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype, route=route)
             torch.cuda.synchronize()
             ref = sp.conv_zwin_apply(feats, start, pattern, w, (3, 3, 3), dtype)
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max())
-            check(torch.isfinite(got).all().item(), f"{name} {tag}: non-finite")
-            ok = bool(((got - ref).abs() <= tol * scale + tol * ref.abs()).all())
-            check(ok, f"{name} {tag}: kernel disagrees with plain version "
-                      f"(max abs err {err}, scale {scale})")
-            ms = cuda_ms(lambda: zw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype))
-            plain = cuda_ms(lambda: sp.conv_zwin_apply(feats, start, pattern, w,
-                                                       (3, 3, 3), dtype), reps=10)
-            bound, by, taps = zwin_bound_ms(b, n, c, cout, start, pattern, dtype)
-            row.update({f"{tag}_max_abs_err": err, f"{tag}_ref_scale": scale,
-                        f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
-                        f"{tag}_bound_ms": bound, f"{tag}_bound_by": by,
-                        "active_taps": taps})
+            check(torch.isfinite(got).all().item(), f"{label}: non-finite")
+            check(scale > 0, f"{label}: the plain version is all zero")
+            check(agrees(got, ref, tol), f"{label}: kernel disagrees with plain "
+                                         f"version (max abs err {err}, scale {scale})")
             del ref
-            for variant in ALIGN:
-                res = align_variant(variant, f"{name} {tag}", feats, start, pattern, w,
-                                    dtype, tol, got, taps)
-                row.update({f"{variant}_{tag}_{k}": v for k, v in res.items()})
-        print(f"zwin_conv {name}: B={b} N={n} M={row['M']} taps={row['active_taps']} "
-              f"bf16 {row['bf16_ms']:.4f} ms (plain {row['bf16_plain_ms']:.3f}, "
+            ms = cuda_ms(lambda: zw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype,
+                                              route=route))
+            row.update({f"{tag}_max_abs_err": err, f"{tag}_ref_scale": scale,
+                        f"{tag}_ms": ms})
+            if route is None:
+                plain = cuda_ms(lambda: sp.conv_zwin_apply(feats, start, pattern, w,
+                                                           (3, 3, 3), dtype), reps=10)
+                bound, by, taps = zwin_bound_ms(b, n, c, cout, start, pattern, dtype)
+                row.update({f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
+                            f"{tag}_bound_by": by, "active_taps": taps})
+                for variant in ALIGN:
+                    res = align_variant(variant, f"{name} {tag}", feats, start, pattern,
+                                        w, dtype, tol, got, taps)
+                    row.update({f"{variant}_{tag}_{k}": v for k, v in res.items()})
+            del got
+        row.setdefault("bf16_fma_ms", row["bf16_ms"])
+        print(f"zwin_conv {name} x{count}: B={b} N={n} M={row['M']} "
+              f"taps={row['active_taps']} bf16 {row['route']} {row['bf16_ms']:.4f} ms "
+              f"(fma {row['bf16_fma_ms']:.4f}, plain {row['bf16_plain_ms']:.3f}, "
               f"bound {row['bf16_bound_ms']:.4f} {row['bf16_bound_by']}, "
-              f"err {row['bf16_max_abs_err']:.3g}) | f32 {row['f32_ms']:.4f} ms "
-              f"(plain {row['f32_plain_ms']:.3f}, err {row['f32_max_abs_err']:.3g})",
-              flush=True)
+              f"err {row['bf16_max_abs_err']:.3g} of scale {row['bf16_ref_scale']:.3g}) "
+              f"| f32 fma {row['f32_ms']:.4f} ms (plain {row['f32_plain_ms']:.3f}, "
+              f"err {row['f32_max_abs_err']:.3g})", flush=True)
         for variant in ALIGN:
             v = {k[len(variant) + 1:]: x for k, x in row.items()
                  if k.startswith(variant + "_")}
@@ -291,6 +308,15 @@ def kernel_phase(layers, dev):
                   flush=True)
         shapes.append(row)
     return shapes
+
+
+def route_launches(name, rows, count):
+    """The launches of kernel ``name`` that ``rows`` give, in all and per
+    route: {name: n, name.route: n, ...}."""
+    want = {name: sum(r[count] for r in rows)}
+    for route in kernels.ROUTES[name]:
+        want[f"{name}.{route}"] = sum(r[count] for r in rows if r["route"] == route)
+    return want
 
 
 def column_path_layers(cfg, points, num):
@@ -560,10 +586,12 @@ def reference_phase(sd, dev, backend):
             det, diag = model.inference(torch.from_numpy(pts).to(d),
                                         torch.from_numpy(num).to(d), anchors)
         out[d.type] = (det, {k: int(v) for k, v in diag.items()})
-        used = "column_conv" if backend == "column" else "zwin_conv"
-        check(zw.LAUNCHES[used] == (6 if d.type == "cuda" else 0)
-              and sum(zw.LAUNCHES.values()) == zw.LAUNCHES[used],
-              f"reference check on {d.type}: launches {dict(zw.LAUNCHES)}")
+        # float32: every z-window launch on the FMA route
+        want = ({} if d.type == "cpu" else {"column_conv": 6} if backend == "column"
+                else {"zwin_conv": 6, "zwin_conv.fma": 6})
+        launched = {k: n for k, n in zw.LAUNCHES.items() if n}
+        check(launched == want, f"reference check on {d.type}: launches {launched}, "
+                                f"not {want}")
     (gd, gdiag), (cd, cdiag) = out["cuda"], out["cpu"]
     check(gdiag == cdiag, f"counters differ: card {gdiag} vs CPU {cdiag}")
     gv, cv = gd.valid.cpu(), cd.valid
@@ -898,6 +926,9 @@ def main():
 
     zwin_layers = path_layers(cfg, points, num_t)
     shapes = kernel_phase(zwin_layers, dev)
+    want_zwin = route_launches("zwin_conv", shapes, "launches_per_forward")
+    check(want_zwin == {"zwin_conv": 6, "zwin_conv.fma": 1, "zwin_conv.mma": 5},
+          f"expected z-window launches per forward {want_zwin}")
     align_launches = align_variants_path(zwin_layers, dev)
     print(f"zwin_align variants on the forward's z-window layers: launches "
           f"{align_launches}", flush=True)
@@ -907,7 +938,7 @@ def main():
     del col_layers
     gg_rows, gr_rows = train_kernel_phase(cfg, points, num_t, dev)
     torch.cuda.empty_cache()
-    e2e = end_to_end_phase(model, anchors, points, num_t, {"zwin_conv": 6})
+    e2e = end_to_end_phase(model, anchors, points, num_t, want_zwin)
     print(f"e2e: batch {BATCH} x {POINTS} points, p50 {e2e['latency_ms_p50']:.2f} ms, "
           f"peak mem {e2e['peak_mem_bytes'] / 2**30:.2f} GiB, "
           f"valid detections per frame {e2e['valid_per_frame']}, "
@@ -932,11 +963,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()      # the training phase starts from a clean pool
     expected = {"zwin_conv": 0,
-                "gather_gemm": sum(r["launches_per_step"] for r in gg_rows),
-                "gather_rows": sum(r["launches_per_step"] for r in gr_rows)}
-    for route in ROUTES:
-        expected[f"gather_gemm.{route}"] = sum(r["launches_per_step"] for r in gg_rows
-                                               if r["route"] == route)
+                "gather_rows": sum(r["launches_per_step"] for r in gr_rows),
+                **route_launches("gather_gemm", gg_rows, "launches_per_step")}
     check(expected["gather_gemm"] == 27 and expected["gather_rows"] == 14
           and expected["gather_gemm.mma"] == 26,
           f"expected launches per training step {expected}")
@@ -971,19 +999,25 @@ def main():
          "replaces": "vision3d_tpu/ops/pallas/zwin_conv.py:114",
          "launches": e2e["launches"]["zwin_conv"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in shapes),
+         "launches_by_route": {r: e2e["launches"][f"zwin_conv.{r}"]
+                               for r in kernels.ROUTES["zwin_conv"]},
          "ms": per(shapes, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(shapes, "bf16_bound_ms", "launches_per_forward"),
          "bound_by": bound_by(shapes),
          # no single PyTorch call computes a z-window conv
          "library_ms": None,
-         "shapes": brief(shapes, "launches_per_forward", ("M",) + times)},
+         # every launch on the float32-FMA route (the design before the mma route)
+         "ms_fma_route_only": per(shapes, "bf16_fma_ms", "launches_per_forward"),
+         "shapes": brief(shapes, "launches_per_forward",
+                         ("route", "M", "active_taps", "bf16_fma_ms") + times)},
         {"name": "gather_gemm", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/gather_gemm.cu",
          "replaces": "vision3d_tpu/ops/pallas/sparse_conv.py:52",
          "launches": train["launches"]["gather_gemm"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gg_rows),
-         "launches_by_route": {r: train["launches"][f"gather_gemm.{r}"] for r in ROUTES},
+         "launches_by_route": {r: train["launches"][f"gather_gemm.{r}"]
+                               for r in kernels.ROUTES["gather_gemm"]},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies

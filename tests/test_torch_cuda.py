@@ -29,14 +29,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(c, seed, dev, b=2, n=300, m=1000):
+def _case(c, seed, dev, b=2, n=300, m=1000, cout=None):
     """Random rulebook as in tests/test_pallas_kernels.py: starts in
     [0, N], so windows reach the zero rows past N."""
     rng = np.random.default_rng(seed)
     feats = rng.normal(size=(b, n, c)).astype(np.float32)
     start = rng.integers(0, n + 1, (b, m * 9)).astype(np.int32)
     pattern = np.where(start == n, 0, rng.integers(0, 8, (b, m * 9))).astype(np.int32)
-    w = rng.normal(size=(27 * c, COUT[c])).astype(np.float32)
+    w = rng.normal(size=(27 * c, cout or COUT[c])).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (feats, start, pattern, w)]
 
 
@@ -64,6 +64,94 @@ def test_zwin_kernel_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         tzw.zwin_conv(feats.transpose(1, 2).contiguous().transpose(1, 2),
                       start, pattern, w)
+    with pytest.raises(ValueError):
+        tzw.zwin_conv(feats, start, pattern, w, (3, 3, 3), torch.bfloat16, route="wgmma")
+
+
+def _zw_counts():
+    return [tzw.LAUNCHES[k] for k in ("zwin_conv", "zwin_conv.fma", "zwin_conv.mma")]
+
+
+def _zw_check(feats, start, pattern, w, dtype, route=None):
+    """One launch against the plain version, 1e-5 of the output scale,
+    counted once in all and once on its route."""
+    route_used = route or route_of(dtype, feats.shape[2], w.shape[1])
+    before = _zw_counts()
+    got = tzw.zwin_conv(feats, start, pattern, w, (3, 3, 3), dtype, route=route)
+    torch.cuda.synchronize()
+    after = _zw_counts()
+    assert after[0] == before[0] + 1
+    assert after[1:] == [before[1] + (route_used == "fma"), before[2] + (route_used == "mma")]
+    ref = tsp.conv_zwin_apply(feats, start, pattern, w, (3, 3, 3), dtype)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("cout", [16, 32, 64, 128])
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_zwin_mma_route_matches_plain(c, cout, cuda_device):
+    """The tensor-core route (bf16, rulebook built per tile from (start,
+    pattern)) at every C x Cout it takes on the path and beyond: 1e-5 of
+    the output scale, counted on "mma". B*M = 2000 is no multiple of the
+    64-site tile, and the tile of sites 960-1023 spans the two frames."""
+    assert route_of(torch.bfloat16, c, cout) == "mma"
+    _zw_check(*_case(c, c + cout, cuda_device, cout=cout), torch.bfloat16)
+
+
+@pytest.mark.parametrize("c,cout", [(16, 32), (32, 64)])
+def test_zwin_fma_route_forced_and_float32(c, cout, cuda_device):
+    """The FMA kernel forced in bf16 agrees with the plain version and is
+    counted on "fma"; float32 takes "fma" by default, bit for bit the
+    forced call; "mma" refuses float32 and C = 4, launching nothing."""
+    feats, start, pattern, w = _case(c, 21, cuda_device, cout=cout)
+    _zw_check(feats, start, pattern, w, torch.bfloat16, route="fma")
+    got = _zw_check(feats, start, pattern, w, torch.float32)
+    forced = tzw.zwin_conv(feats, start, pattern, w, (3, 3, 3), torch.float32, route="fma")
+    torch.cuda.synchronize()
+    assert torch.equal(got, forced)
+    before = _zw_counts()
+    with pytest.raises(ValueError):
+        tzw.zwin_conv(feats, start, pattern, w, (3, 3, 3), torch.float32, route="mma")
+    with pytest.raises(ValueError):
+        tzw.zwin_conv(feats[..., :4].contiguous(), start, pattern, w[: 27 * 4],
+                      (3, 3, 3), torch.bfloat16, route="mma")
+    assert _zw_counts() == before
+
+
+def test_zwin_mma_sparse_tiles_and_past_n(cuda_device):
+    """Tiles whose taps are extreme: sites 128-255 of frame 0 (two whole
+    tiles) have empty windows and come out exactly zero; site 300 has one
+    tap only; in frame 1 every window starts at N - 1 with all three bits
+    set, so tap dz = 0 reads row N - 1 and taps 1 and 2 reach past N:
+    misses that must read nothing."""
+    feats, start, pattern, w = _case(32, 7, cuda_device, n=200, m=410)
+    n = feats.shape[1]
+    st = start.reshape(2, 410, 9).clone()
+    pt = pattern.reshape(2, 410, 9).clone()
+    pt[0, 128:256] = 0
+    pt[0, 300] = 0
+    pt[0, 300, 4], st[0, 300, 4] = 0b100, 17
+    st[1] = n - 1
+    pt[1] = 0b111
+    got = _zw_check(feats, st.reshape(2, -1).contiguous(), pt.reshape(2, -1).contiguous(),
+                    w, torch.bfloat16)
+    assert not got[0, 128:256].any()
+    assert got[0, 300].any()
+
+
+def test_zwin_mma_unaligned_bf16_view(cuda_device):
+    """A bf16 ``feats`` view off 16-byte alignment (what ``cp.async``
+    needs) is copied by the wrapper, not read askew: bit for bit the
+    aligned input's result."""
+    feats, start, pattern, w = _case(32, 13, cuda_device, cout=32)
+    x = feats.bfloat16()
+    odd = torch.cat([x.new_zeros((1,)), x.reshape(-1)])[1:].reshape(x.shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    ref = tzw.zwin_conv(x, start, pattern, w, (3, 3, 3), torch.bfloat16)
+    got = tzw.zwin_conv(odd, start, pattern, w, (3, 3, 3), torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def _gg_case(c, cout, kd, seed, dev, b=2, n=300, m=700):

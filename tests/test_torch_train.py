@@ -242,6 +242,10 @@ def test_fresh_init_statistics(tiny_cfg):
     np.testing.assert_allclose(float(w.detach().std()), (2 / 64) ** 0.5, rtol=0.05)
     r = m1.rpn[1][0].weight                         # (128, 128, 3, 3)
     np.testing.assert_allclose(float(r.detach().std()), (2 / (9 * 256)) ** 0.5, rtol=0.05)
+    for block in m1.rpn:                            # flax's truncated xavier-normal
+        r = block[0].weight.detach()
+        sigma = (2 / ((r.shape[0] + r.shape[1]) * r.shape[2] * r.shape[3])) ** 0.5
+        assert float(r.abs().max()) <= 2.2737 * sigma
     np.testing.assert_allclose(float(m1.head.conv_reg.weight.detach().std()), 0.01, rtol=0.1)
     np.testing.assert_allclose(m1.head.conv_cls.bias.detach().numpy(), -np.log(99.0),
                                rtol=1e-6)

@@ -1,19 +1,24 @@
-"""Microbench: the three z-window conv kernels of the PyTorch port on one
-set of rulebooks, on a GPU (counterpart of tools/microbench_zwin.py).
+"""Microbench: the z-window conv kernels of the PyTorch port on one set of
+rulebooks, on a GPU (counterpart of tools/microbench_zwin.py).
 
 Full KITTI geometry, configs/second/all_classes.yaml, batch 8 x 18,000
 synthetic points: the real (start, pattern) rulebooks of the forward's six
 z-window layers (``chip_smoke.path_layers``). Per layer, in bf16 (or --dtype float32), CUDA-event
 medians of
   * v2: ``zwin_conv`` (csrc/zwin_conv.cu), which reads (feats, start,
-    pattern) itself: the kernel the model runs;
+    pattern) itself: the kernel the model runs, on each route the widths
+    allow ("mma": tensor cores, bf16 with C % 16 == 0; "fma": the
+    float32-FMA design);
   * v1 and v3: ``zwin_align_gemm_v1`` / ``_v3`` (csrc/zwin_align_gemm.cu)
     on already gathered windows: the kernel alone, and the whole
     ``conv_zwin_apply_v1`` / ``_v3`` with its window gather and mask build
     in plain PyTorch;
   * the plain version ``ops.sparse.conv_zwin_apply``.
-Every variant's output is held against v2's (1e-4 of the scale in float32,
-2e-2 in bf16) before it is timed.
+Every kernel's output is held against the plain version's (1e-4 of the
+scale in float32, 2e-2 in bf16) before it is timed. Printed beside the
+bound (each input read once, the output written once, 2*C*Cout flops per
+active tap, over the H100's peaks); ends with the per-forward sums (each
+layer times its launches).
 
     python tools/microbench_torch_zwin.py [--iters 10] [--dtype bfloat16]
 """
@@ -28,10 +33,11 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, path_layers  # noqa: E402
+from chip_smoke import cuda_ms, path_layers, zwin_bound_ms  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
 from vision3d_tpu_torch.ops import sparse as sp  # noqa: E402
 from vision3d_tpu_torch.ops import zwin_conv as zw  # noqa: E402
+from vision3d_tpu_torch.ops.gather_gemm import route_of  # noqa: E402
 from vision3d_tpu_torch.synthetic import kitti_like_batch  # noqa: E402
 
 K3 = (3, 3, 3)
@@ -56,16 +62,21 @@ def main(argv=None):
     layers = path_layers(cfg, torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev))
     gen = torch.Generator(device=dev).manual_seed(0)
     totals = {}
+    failed = []
     for name, count, c, cout, n, start, pattern in layers:
         b, m = start.shape[0], start.shape[1] // 9
         feats = torch.randn((b, n, c), generator=gen, device=dev)
         w = torch.randn((27 * c, cout), generator=gen, device=dev) / (27 * c) ** 0.5
-        ref = zw.zwin_conv(feats, start, pattern, w, K3, dtype)
+        ref = sp.conv_zwin_apply(feats, start, pattern, w, K3, dtype)
         scale = float(ref.abs().max())
+        bound, by, taps = zwin_bound_ms(b, n, c, cout, start, pattern, dtype)
         g_km = zw.gather_windows_km(feats, start, dtype)
         m1, m3 = zw.pair_masks(pattern, m, dtype), zw.shift_masks(pattern, m, dtype)
         runs = {
-            "v2 zwin_conv": lambda: zw.zwin_conv(feats, start, pattern, w, K3, dtype),
+            f"v2 zwin_conv {r}":
+                (lambda r=r: zw.zwin_conv(feats, start, pattern, w, K3, dtype, route=r))
+            for r in dict.fromkeys((route_of(dtype, c, cout), "fma"))}
+        runs.update({
             "v1 kernel": lambda: zw.zwin_align_gemm_v1(g_km, m1, w),
             "v1 gather+masks+kernel":
                 lambda: zw.conv_zwin_apply_v1(feats, start, pattern, w, K3, dtype),
@@ -73,18 +84,27 @@ def main(argv=None):
             "v3 gather+masks+kernel":
                 lambda: zw.conv_zwin_apply_v3(feats, start, pattern, w, K3, dtype),
             "plain": lambda: sp.conv_zwin_apply(feats, start, pattern, w, K3, dtype),
-        }
+        })
         for label, fn in runs.items():
-            err = float((fn() - ref).abs().max())
-            if err > tol * scale:
-                print(f"{name} {label}: differs from v2 by {err} (scale {scale})",
-                      file=sys.stderr)
-                return 1
+            got = fn()
+            err = float((got - ref).abs().max())
+            ok = bool(((got - ref).abs() <= tol * scale + tol * ref.abs()).all())
+            del got
+            if not ok:
+                failed.append(f"{name} {label}")
             ms = cuda_ms(fn, reps=args.iters)
             totals[label] = totals.get(label, 0.0) + count * ms
-            print(f"{name:16s} B={b} N={n} M={m} {label:24s} {ms:8.4f} ms", flush=True)
+            print(f"{name:16s} x{count} B={b} N={n} M={m} taps={taps} {label:24s} "
+                  f"{ms:8.4f} ms bound {bound:.4f} ({by}) x{ms / bound:7.1f} "
+                  f"err {err:.3g} scale {scale:.3g}{'' if ok else ' DISAGREES'}",
+                  flush=True)
+        totals["bound"] = totals.get("bound", 0.0) + count * bound
+        del ref
     for label, ms in totals.items():
         print(f"per forward (6 launches) {label:24s} {ms:8.4f} ms")
+    if failed:
+        print(f"kernel disagrees with the plain version: {failed}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -26,20 +26,12 @@
 // Two routes, chosen by the wrapper from (dtype, C, Cout) alone:
 //
 // * "mma" (gather_gemm_mma_kernel), bf16 with C % 16 == 0 and Cout % 8 ==
-//   0: a block of 4 warps owns a tile of T = 64 consecutive flattened sites
-//   and all Cout columns. The tile's T*K rulebook entries are read once,
-//   coalesced, into shared memory as global row numbers (b*N + row, -1 for
-//   a miss), and a list of the taps that any site of the tile hits is
-//   built; a tap no site hits is skipped whole. For each hit tap (in
-//   chunks of at most 64 channels) the T gathered C-wide rows are staged
-//   into an A tile by 16-byte cp.async (a miss is the zero-fill form, with
-//   src-size 0 from the valid base address: no address is formed from a
-//   miss row) and the tap's weight slice into a B tile; rows are padded by
-//   16 bytes so ldmatrix is conflict-free. Two stages: the copies of the
-//   next hit tap are in flight while the current one is multiplied with
-//   ldmatrix (.trans for B) and mma.sync m16n8k16 bf16 -> f32. The sums
-//   stay in registers across all taps; the epilogue writes f32 rows below
-//   B*M.
+//   0: tiles of 64 consecutive flattened sites on the tensor cores, the
+//   design of gather_tile_mma.cuh (cp.async-staged gathered rows and
+//   weight slices in a two-stage ring, ldmatrix + mma.sync m16n8k16 bf16
+//   -> f32, only the taps some site of the tile hits). The tile's T*K
+//   rulebook entries are read once, coalesced, into shared memory as
+//   global row numbers (b*N + row, -1 for a miss).
 // * "fma" (gather_gemm_kernel), float32 (the card-vs-CPU checks need exact
 //   f32 products, which TF32 tensor cores would not give), and bf16 with
 //   C % 16 != 0 or Cout % 8 != 0: one site per min(32, Cout) lanes, lanes
@@ -49,9 +41,10 @@
 //   shuffles; FMA in float32. Rows need no alignment (C = 4 bf16 rows are
 //   8 bytes): no vector load.
 
-#include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "gather_tile_mma.cuh"
 
 namespace {
 
@@ -156,117 +149,29 @@ cudaError_t dispatch_fma(const void* feats, const void* rb, const void* weight,
 
 // ---------------------------------------------------------------- mma route
 
-typedef __nv_bfloat16 bf16;
+namespace gt = gather_tile;
+typedef gt::bf16 bf16;
 
-constexpr int MMA_THREADS = 128;  // 4 warps
-constexpr int CK_MAX = 64;        // channels of one stage
-constexpr int PAD = 8;            // bf16 of padding per staged row (16 bytes)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy to shared memory; with on == false it writes 16 zero bytes
-// and reads nothing (src-size 0), so src need only be a valid address.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool on) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(on ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) @ b (16x8, col), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Warps WARPS_M x (4 / WARPS_M); each holds WM sites x Cout / WARPS_N
-// columns of the T = WM * WARPS_M site tile.
-template <int COUT, int WM, int WARPS_M>
-struct MmaShape {
-  static constexpr int WARPS_N = 4 / WARPS_M;
-  static constexpr int T = WM * WARPS_M;
-  static constexpr int WN = COUT / WARPS_N;
-  static constexpr int MT = WM / 16;  // m16 tiles per warp
-  static constexpr int NT = WN / 8;   // n8 tiles per warp
-  static constexpr int BS = COUT + PAD;  // weight row stride (bf16)
-  static_assert(WM % 16 == 0 && WN % 8 == 0, "warp tile");
-};
-
-// Dynamic shared memory of one block: two A tiles [T][ck + PAD], two B
-// tiles [ck][COUT + PAD], the tile's rulebook [T*K] and the tap list [K].
-template <int COUT, int WM, int WARPS_M>
-size_t mma_smem_bytes(int K, int C) {
-  typedef MmaShape<COUT, WM, WARPS_M> S;
-  const int ck = C < CK_MAX ? C : CK_MAX;
-  return 2 * (size_t)S::T * (ck + PAD) * sizeof(bf16) +
-         2 * (size_t)ck * S::BS * sizeof(bf16) +
-         ((size_t)S::T * K + 2 * (size_t)K + 1) * sizeof(int);
-}
-
-template <int COUT, int WM, int WARPS_M>
-__global__ void __launch_bounds__(MMA_THREADS)
+// The tile's rulebook is read once, coalesced, into shared memory as
+// global rows b*N + row (-1: miss); the rest is gt::tile_mma.
+template <int COUT>
+__global__ void __launch_bounds__(gt::THREADS)
 gather_gemm_mma_kernel(const bf16* __restrict__ feats,
                        const int* __restrict__ rb,
                        const bf16* __restrict__ weight,
                        float* __restrict__ out, int B, int N, int M, int K,
                        int C) {
-  typedef MmaShape<COUT, WM, WARPS_M> S;
-  constexpr int T = S::T, MT = S::MT, NT = S::NT, BS = S::BS;
+  constexpr int T = gt::Shape<COUT>::T;
   extern __shared__ int4 smem_raw[];
-  const int ck_max = C < CK_MAX ? C : CK_MAX;
-  const int as = ck_max + PAD;  // A row stride (bf16): 16 bytes off 32k
-  bf16* a_tiles = reinterpret_cast<bf16*>(smem_raw);
-  bf16* b_tiles = a_tiles + 2 * T * as;
-  int* grow = reinterpret_cast<int*>(b_tiles + 2 * ck_max * BS);
-  int* hit = grow + T * K;  // per tap: any site of the tile hits it
-  int* taps = hit + K;      // the hit taps, in order
-  int* ntaps_s = taps + K;
-
+  const gt::TileSmem sm = gt::carve_smem<COUT>(smem_raw, K, C);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   const int total = B * M;  // < INT_MAX, checked by the launcher
   const int tile0 = blockIdx.x * T;
 
-  // 1. the tile's rulebook, coalesced, as global rows b*N + row (-1: miss)
-  for (int k = tid; k < K; k += MMA_THREADS) hit[k] = 0;
+  for (int k = tid; k < K; k += gt::THREADS) sm.hit[k] = 0;
   __syncthreads();
   const long long e0 = (long long)tile0 * K;
-  for (int e = tid; e < T * K; e += MMA_THREADS) {
+  for (int e = tid; e < T * K; e += gt::THREADS) {
     const int i = e / K;
     const int site = tile0 + i;
     int g = -1;
@@ -274,168 +179,28 @@ gather_gemm_mma_kernel(const bf16* __restrict__ feats,
       const int row = rb[e0 + e];
       if (row >= 0 && row < N) {
         g = (site / M) * N + row;
-        hit[e - i * K] = 1;
+        sm.hit[e - i * K] = 1;
       }
     }
-    grow[e] = g;
+    sm.grow[e] = g;
   }
   __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const bool on = k0 + lane < K && hit[k0 + lane];
-      const unsigned votes = __ballot_sync(0xffffffffu, on);
-      if (on) taps[n + __popc(votes & ((1u << lane) - 1))] = k0 + lane;
-      n += __popc(votes);
-    }
-    if (lane == 0) *ntaps_s = n;
-  }
-  __syncthreads();
-  const int nchunks = (C + CK_MAX - 1) / CK_MAX;
-  const int stages = *ntaps_s * nchunks;
-
-  // 2. stage s = (hit tap s / nchunks, channel chunk s % nchunks)
-  auto load_stage = [&](int s) {
-    const int t = s / nchunks;
-    const int c0 = (s - t * nchunks) * CK_MAX;
-    const int k = taps[t];
-    const int ck = min(CK_MAX, C - c0);
-    bf16* a = a_tiles + (s & 1) * T * as;
-    bf16* w = b_tiles + (s & 1) * ck_max * BS;
-    const int pieces = ck / 8;  // 16-byte pieces of a row
-    for (int p = tid; p < T * pieces; p += MMA_THREADS) {
-      const int i = p / pieces, q = p - i * pieces;
-      const int g = grow[i * K + k];
-      const bf16* src = g >= 0 ? feats + (long long)g * C + c0 + q * 8 : feats;
-      cp_async16(smem_addr(a + i * as + q * 8), src, g >= 0);
-    }
-    constexpr int WP = COUT / 8;
-    const bf16* wsrc = weight + ((long long)k * C + c0) * COUT;
-    for (int p = tid; p < ck * WP; p += MMA_THREADS) {
-      const int r = p / WP, q = p - r * WP;
-      cp_async16(smem_addr(w + r * BS + q * 8), wsrc + r * COUT + q * 8, true);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
-
-  const int wm0 = (warp % WARPS_M) * WM;
-  const int wn0 = (warp / WARPS_M) * S::WN;
-  if (stages > 0) load_stage(0);
-  cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    // the buffer written here was last read before the barrier that ended
-    // the previous iteration
-    if (s + 1 < stages) load_stage(s + 1);
-    cp_async_commit();
-    cp_async_wait_one();  // all but the newest group: stage s has landed
-    __syncthreads();
-    const int c0 = (s % nchunks) * CK_MAX;
-    const int ck = min(CK_MAX, C - c0);
-    const bf16* a = a_tiles + (s & 1) * T * as;
-    const bf16* w = b_tiles + (s & 1) * ck_max * BS;
-    for (int kk = 0; kk < ck; kk += 16) {
-      unsigned af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(smem_addr(a + (wm0 + mt * 16 + (lane & 15)) * as + kk +
-                          (lane >> 4) * 8),
-                af[mt]);
-      unsigned bfr[NT][2];
-      const int krow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned r[4];
-        ldsm_x4_trans(
-            smem_addr(w + krow * BS + wn0 + np * 16 + (lane >> 4) * 8), r);
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-      if (NT % 2)
-        ldsm_x2_trans(smem_addr(w + krow * BS + wn0 + (NT - 1) * 8),
-                      bfr[NT - 1]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-    }
-    __syncthreads();
-  }
-
-  // 3. epilogue: C/D fragment rows lane/4 and lane/4 + 8, columns
-  // 2*(lane%4) + {0, 1}; out is (B*M, COUT) row-major
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = tile0 + wm0 + mt * 16 + (lane >> 2);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n = wn0 + nt * 8 + (lane & 3) * 2;
-      if (r0 < total)
-        *reinterpret_cast<float2*>(out + (long long)r0 * COUT + n) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r0 + 8 < total)
-        *reinterpret_cast<float2*>(out + (long long)(r0 + 8) * COUT + n) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
+  gt::tile_mma<COUT>(feats, weight, out, total, tile0, K, C, sm);
 }
 
-template <int COUT, int WM, int WARPS_M>
-cudaError_t launch_mma(const void* feats, const void* rb, const void* weight,
-                       void* out, int B, int N, int M, int K, int C,
-                       cudaStream_t stream) {
-  typedef MmaShape<COUT, WM, WARPS_M> S;
-  const size_t smem = mma_smem_bytes<COUT, WM, WARPS_M>(K, C);
-  auto kernel = gather_gemm_mma_kernel<COUT, WM, WARPS_M>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)(((long long)B * M + S::T - 1) / S::T);
-  kernel<<<blocks, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(feats), static_cast<const int*>(rb),
-      static_cast<const bf16*>(weight), static_cast<float*>(out), B, N, M, K,
-      C);
-  return cudaGetLastError();
-}
+template <int COUT>
+struct MmaKernel {
+  static auto fn() { return gather_gemm_mma_kernel<COUT>; }
+};
 
-// Tile of 64 sites: 4 x 1 warps of 16 sites x Cout up to Cout 64; 2 x 2
-// warps of 32 sites x 64 columns at Cout 128 (64 f32 sums a thread). On
-// the training step's 27 shapes on the H100 tiles of 64 took 13.0 ms in
-// all, tiles of 128 (twice the rows per warp) 13.9 ms
-// (tools/microbench_torch_gather_gemm.py): more blocks in flight hide the
-// gather's latency better than fewer weight copies per site save.
 cudaError_t dispatch_mma(const void* feats, const void* rb, const void* weight,
                          void* out, int B, int N, int M, int K, int C,
                          int cout, cudaStream_t stream) {
-  if (C % 16 || (long long)B * N >= INT_MAX || (long long)B * M >= INT_MAX - 64)
-    return cudaErrorInvalidValue;
-  switch (cout) {
-    case 8:
-      return launch_mma<8, 16, 4>(feats, rb, weight, out, B, N, M, K, C,
-                                  stream);
-    case 16:
-      return launch_mma<16, 16, 4>(feats, rb, weight, out, B, N, M, K, C,
-                                   stream);
-    case 32:
-      return launch_mma<32, 16, 4>(feats, rb, weight, out, B, N, M, K, C,
-                                   stream);
-    case 64:
-      return launch_mma<64, 16, 4>(feats, rb, weight, out, B, N, M, K, C,
-                                   stream);
-    case 128:
-      return launch_mma<128, 32, 2>(feats, rb, weight, out, B, N, M, K, C,
-                                    stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!gt::sizes_fit(B, N, M, C)) return cudaErrorInvalidValue;
+  return gt::launch_tiles<MmaKernel>(
+      cout, (long long)B * M, K, C, stream, static_cast<const bf16*>(feats),
+      static_cast<const int*>(rb), static_cast<const bf16*>(weight),
+      static_cast<float*>(out), B, N, M, K, C);
 }
 
 }  // namespace

@@ -4,10 +4,10 @@ Each kernel has a plain C entry point ``<name>_launch`` in one
 ``csrc/<source>.cu`` (its own ``<name>.cu`` unless ``SOURCES`` names
 another: the two z-window align kernels share a file). A source is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<source>-<hash>.so``
-under this package at first use (the hash of the source keeps a stale
-library from being loaded) and bound with ``ctypes``. Nothing is built
-when a module is imported; ``build()`` compiles several sources at once,
-one ``nvcc`` process each. ``launch()`` calls a kernel's entry point and
+under this package at first use (the hash of the source and of every
+``csrc/`` header it includes keeps a stale library from being loaded) and
+bound with ``ctypes``. Nothing is built when a module is imported;
+``build()`` compiles several sources at once, one ``nvcc`` process each. ``launch()`` calls a kernel's entry point and
 raises on a CUDA error; ``LAUNCHES`` counts the launches of each kernel,
 and of each route ``<name>.<route>`` of a kernel with several (``ROUTES``:
 one entry point that takes the route as an argument).
@@ -16,6 +16,7 @@ one entry point that takes the route as an argument).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 # route names in the order of the entry point's route argument
-ROUTES = {"gather_gemm": ("fma", "mma")}
+ROUTES = {"gather_gemm": ("fma", "mma"), "zwin_conv": ("fma", "mma")}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}.{r}": 0 for name, routes in ROUTES.items() for r in routes})
@@ -55,9 +56,23 @@ def source_of(name: str) -> str:
     return SOURCES.get(name, name)
 
 
+def _includes(path: Path, seen: dict) -> dict:
+    """``path`` and every ``#include "..."`` file under ``csrc/`` it reaches,
+    as {path: bytes}."""
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in re.findall(rb'^\s*#\s*include\s*"([^"]+)"', text, re.M):
+        dep = CSRC / inc.decode()
+        if dep.is_file() and dep not in seen:
+            _includes(dep, seen)
+    return seen
+
+
 def so_path(source: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{source}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{source}-{digest}.so"
+    digest = hashlib.sha1()
+    for text in _includes(CSRC / f"{source}.cu", {}).values():
+        digest.update(text)
+    return BUILD / f"lib{source}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> dict:

@@ -77,15 +77,21 @@ class Second(nn.Module):
         return head_inference(cls_map, reg_map, anchors, self.cfg), diag
 
 
+# std of a unit normal cut at +-2 (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
 def init_second(model: Second, generator: torch.Generator):
     """Fresh weights as the JAX package initialises them, drawn from
     ``generator`` (a CPU generator; call before moving the model):
     sparse convs ``variance_scaling(2, fan_out, normal)`` (std
-    sqrt(2/Cout)), RPN convs xavier-normal, head kernels normal(0.01), the
-    cls bias at the focal prior -log((1-p)/p) with p = 0.01
+    sqrt(2/Cout)), RPN convs xavier-normal as flax draws it (a normal cut
+    at two of its own std and widened so the std stays sqrt(2/fan_avg):
+    every weight within 2.2737 std), head kernels normal(0.01), the cls
+    bias at the focal prior -log((1-p)/p) with p = 0.01
     (``vision3d_tpu/models/head.py:54-60``); batch norms keep their
-    constructors' scale 1 / bias 0 / mean 0 / var 1. The two frameworks draw different numbers from a seed; only
-    the distributions agree."""
+    constructors' scale 1 / bias 0 / mean 0 / var 1. The two frameworks
+    draw different numbers from a seed; only the distributions agree."""
     with torch.no_grad():
         for conv in list(model.cnn.subm) + list(model.cnn.down):
             conv.weight.normal_(0.0, math.sqrt(2.0 / conv.weight.shape[1]),
@@ -93,7 +99,9 @@ def init_second(model: Second, generator: torch.Generator):
         for block in model.rpn:
             w = block[0].weight                       # (Cout, Cin, kh, kw)
             fan = (w.shape[0] + w.shape[1]) * w.shape[2] * w.shape[3]
-            w.normal_(0.0, math.sqrt(2.0 / fan), generator=generator)
+            s = math.sqrt(2.0 / fan) / _TRUNC_STD
+            torch.nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s,
+                                        generator=generator)
         prior = 0.01
         model.head.conv_cls.weight.normal_(0.0, 0.01, generator=generator)
         model.head.conv_cls.bias.fill_(-math.log((1 - prior) / prior))

@@ -40,13 +40,13 @@ _ARGTYPES = [_VP] * 4 + [_CI] * 8 + [_VP]
 def route_of(compute_dtype, c, cout):
     """The kernel a call with these widths takes: "mma" for bfloat16 with
     C % 16 == 0 and Cout % 8 == 0 (the MMA's depth and width), else
-    "fma"."""
+    "fma". The z-window conv (``ops/zwin_conv.py``) takes the same rule."""
     if compute_dtype == torch.bfloat16 and c % 16 == 0 and cout % 8 == 0:
         return "mma"
     return "fma"
 
 
-def _aligned16(t):
+def aligned16(t):
     """``t`` itself if its data starts on a 16-byte boundary (what the mma
     route's cp.async needs), else a fresh copy."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -91,7 +91,7 @@ def gather_gemm(feats, rb, weight, compute_dtype=torch.float32, route=None):
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
     if route == "mma":
-        x, w = _aligned16(x), _aligned16(w)
+        x, w = aligned16(x), aligned16(w)
     out = torch.empty((b, m, cout), dtype=torch.float32, device=feats.device)
     if b == 0 or m == 0:
         return out

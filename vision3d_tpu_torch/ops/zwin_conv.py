@@ -5,7 +5,14 @@ and ``csrc/zwin_align_gemm.cu``.
 ``vision3d_tpu/ops/pallas/zwin_conv.py:114`` (``zwin_conv_gemm_v2`` behind
 ``conv_zwin_apply_pallas2``), the one the model runs. The TPU wrapper
 gathered the z-window rows and built the tap masks in XLA before the
-kernel; the CUDA kernel reads ``(feats, start, pattern)`` itself.
+kernel; the CUDA kernels read ``(feats, start, pattern)`` themselves. Two
+routes, picked by ``gather_gemm.route_of(compute_dtype, C, Cout)``, the
+rule of the rulebook gather-GEMM: ``"mma"`` (tensor cores: each tile of 64
+sites builds its 27-tap rulebook in shared memory from ``(start,
+pattern)`` and runs the gather-GEMM tile of ``csrc/gather_tile_mma.cuh``)
+for bfloat16 with ``C % 16 == 0``; ``"fma"`` (float32 FMA) for float32,
+whose card-vs-CPU checks need exact products, and for C = 4. One route
+never stands in for the other: a failed launch raises.
 
 ``zwin_align_gemm_v1`` / ``_v3`` are the ports of the two other TPU
 variants, ``zwin_conv_gemm`` (``zwin_conv.py:55``) and
@@ -20,8 +27,9 @@ three variants on one set of rulebooks.
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``ops.sparse.conv_zwin_apply``, ``zwin_align_gemm_v1_plain``,
 ``zwin_align_gemm_v3_plain``); on a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches under ``zwin_conv``,
-``zwin_align_v1`` and ``zwin_align_v3``.
+raises. ``LAUNCHES`` counts kernel launches under ``zwin_conv`` (and
+``zwin_conv.mma`` / ``zwin_conv.fma`` per route), ``zwin_align_v1`` and
+``zwin_align_v3``.
 """
 
 import ctypes
@@ -30,21 +38,24 @@ import torch
 
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import sparse as sp
+from vision3d_tpu_torch.ops.gather_gemm import aligned16, route_of
 
 LAUNCHES = kernels.LAUNCHES
+ROUTES = kernels.ROUTES["zwin_conv"]
 reset_launches = kernels.reset_launches
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COUTS = (16, 32, 64, 128)
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 5 + [_CI] * 6 + [_VP]
+_ARGTYPES = [_VP] * 5 + [_CI] * 7 + [_VP]
 
 
 def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
-              compute_dtype=torch.float32):
+              compute_dtype=torch.float32, route=None):
     """feats (B, N, C); start, pattern (B, M*9) int32 from
     ``sp.zwin_rulebook``; weight (27*C, Cout). Returns (B, M, Cout) f32.
     Inputs are rounded to ``compute_dtype`` (float32 or bfloat16); sums
-    are float32."""
+    are float32. ``route`` (card only) forces a kernel where the
+    comparisons need both; by default ``route_of`` picks it."""
     if feats.device.type == "cpu":
         return sp.conv_zwin_apply(feats, start, pattern, weight, kernel,
                                   compute_dtype)
@@ -72,16 +83,26 @@ def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
     if not (feats.is_contiguous() and start.is_contiguous()
             and pattern.is_contiguous()):
         raise ValueError("zwin_conv: feats, start and pattern must be contiguous")
+    chosen = route_of(compute_dtype, c, cout)
+    route = chosen if route is None else route
+    if route not in ROUTES or (route == "mma" and chosen != "mma"):
+        raise ValueError(f"zwin_conv: route {route!r} cannot take "
+                         f"{compute_dtype} {c}x{cout}")
     m = start.shape[1] // 9
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
+    if route == "mma":
+        x, w = aligned16(x), aligned16(w)
     out = torch.empty((b, m, cout), dtype=torch.float32, device=feats.device)
+    if b == 0 or m == 0:
+        return out
     with torch.cuda.device(feats.device):
         kernels.launch(
             "zwin_conv", _ARGTYPES,
             x.data_ptr(), start.data_ptr(), pattern.data_ptr(), w.data_ptr(),
             out.data_ptr(), b, n, m, c, cout, _DTYPES[compute_dtype],
-            torch.cuda.current_stream().cuda_stream)
+            ROUTES.index(route), torch.cuda.current_stream().cuda_stream,
+            route=route)
     return out
 
 
