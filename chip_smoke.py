@@ -27,18 +27,22 @@ Phases, each printing lines before the last:
      gather_rows also beside torch.index_select;
   2c. column_conv against its plain version at the nine shapes of the
      column backend, on the real column rulebooks and active sites of the
-     batch, and a broken copy of the result that must fail the same check;
+     batch, on each of its routes (in bf16 the tensor-core route where the
+     widths allow it and the FMA route at every shape; in float32 the FMA
+     route), each shape's route printed, and per route a broken copy of
+     the result that must fail the same check;
   3. Second.inference end to end at torch's default precision settings:
      launch counts of the run (6 zwin_conv, 5 of them on the tensor-core
      route), capacity counters all 0, finite outputs, p50 batch latency,
      peak memory;
   3b. the same on the column backend (dense_from_stage 2: 6 column_conv
-     launches, no zwin_conv; then one forward with dense_from_stage 4: 14),
-     its counters held against the plain column plan, its detections
-     against the voxel backend's;
+     launches, 5 of them on the tensor-core route, no zwin_conv; then one
+     forward with dense_from_stage 4: 14, 13 on the tensor-core route), its
+     counters held against the plain column plan, its detections against
+     the voxel backend's;
   4. a small-geometry reference check, per backend: the same model on the
      card and on the CPU (plain versions), float32 with TF32 off (every
-     zwin_conv launch on the FMA route), same detections;
+     zwin_conv and column_conv launch on the FMA route), same detections;
   5. training at full geometry, bf16: train steps on one synthetic batch
      from a fresh seeded init: launch counts of a step (27 gather_gemm, 26
      of them on the tensor-core route, 14 gather_rows), capacity counters 0,
@@ -90,11 +94,12 @@ BATCH, POINTS = 8, 18000
 STEPS_PER_EPOCH = 928         # 3712 KITTI train frames / 4, as bench_train.py
 TRAIN_WARMUP, TRAIN_TIMED = 3, 6
 # Column against voxel backend, bf16, same batch and weights (phase 3b).
-# The backends share every op but the sparse convs, whose kernels sum a
-# conv's taps in float32 in other orders (B1's tensor-core route by hit tap
-# and 16-channel step, B3 by (k2, dz, c)): on the card 410 detections each,
-# 1 unpaired on either side, boxes within 0.0059 m, scores within 0.0017
-# (PERF.md). The gate leaves the room that another sum order takes: the
+# The backends share every op but the sparse convs. Their tensor-core routes
+# (B1, B3) sum a conv's taps in one order (hit taps k = dz*K2 + k2, 16
+# channels a step), and on the card the detections came out equal; while
+# B3 summed by (k2, dz, c) in float32 FMA they differed: 410 detections
+# each, 1 unpaired on either side, boxes within 0.0059 m, scores within
+# 0.0017 (PERF.md). The gate leaves the room that another sum order takes: the
 # column forward at dense_from_stage 4 against 2 (cuDNN sums stages 2-3
 # otherwise) moved boxes by 0.069 m, scores by 0.0032 and 3 of 412
 # detections.
@@ -374,9 +379,13 @@ def column_path_layers(cfg, points, num):
 def column_kernel_phase(layers, dev):
     """Phase 2c: B3 against its plain version at every shape of the column
     backend: random values at the layer's real active sites (zeros
-    elsewhere, as the model's rows are), the layer's real rulebook. Each
-    check is repeated on a deliberately broken result (the last BEV offset
-    of every column dropped), which must fail it."""
+    elsewhere, as the model's rows are) in the compute dtype (the model's
+    column layers hand bf16 rows on), the layer's real rulebook, on each
+    route the widths allow (in bf16 the tensor-core route where
+    ``route_of`` picks it and the FMA route at every shape; in float32 the
+    FMA route). Each check is repeated on a deliberately broken result of
+    the same route (the last BEV offset of every column dropped), which
+    must fail it."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
     for layer in layers:
@@ -386,8 +395,8 @@ def column_kernel_phase(layers, dev):
         kz, k2 = kernel[0], kernel[1] * kernel[2]
         b, m = rb.shape[0], rb.shape[1] // k2
         d_out = csp.conv_out_depth(d, kz, sz, pz)
-        feats = (torch.randn((b, n, d, c), generator=gen, device=dev)
-                 * site[..., None]).reshape(b, n, d * c)
+        values = (torch.randn((b, n, d, c), generator=gen, device=dev)
+                  * site[..., None]).reshape(b, n, d * c)
         w = torch.randn((kz * k2 * c, cout), generator=gen, device=dev) / (kz * k2 * c) ** 0.5
         # what this rulebook and these active sites need: one C x Cout product
         # per (output z, BEV offset, dz) whose input site is active
@@ -402,42 +411,51 @@ def column_kernel_phase(layers, dev):
         row = {"shape": name, "launches_per_forward": layer["launches_per_forward"],
                "launches_df4": layer["launches_df4"], "B": b, "N": n, "M": m, "D": d,
                "D_out": d_out, "C": c, "Cout": cout, "K2": k2, "active_taps": taps,
-               "active_out_sites": out_sites}
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            tag = "bf16" if dtype == torch.bfloat16 else "f32"
-            got = column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype)
+               "active_out_sites": out_sites, "route": route_of(torch.bfloat16, c, cout)}
+        runs = [("bf16", torch.bfloat16, 2e-2, None), ("f32", torch.float32, 1e-4, None)]
+        if row["route"] != "fma":
+            runs.insert(1, ("bf16_fma", torch.bfloat16, 2e-2, "fma"))
+        for tag, dtype, tol, route in runs:
+            label = f"column_conv {name} {tag} ({route or route_of(dtype, c, cout)})"
+            # in the compute dtype, as the model's column layers pass their rows
+            feats = values.to(dtype)
+            got = column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype, route=route)
             torch.cuda.synchronize()
             ref = csp.column_conv_dz(feats, rb, w, kernel, d, c, sz, pz, dtype)
             scale = float(ref.abs().max())
             err = float((got - ref).abs().max())
-            check(torch.isfinite(got).all().item(), f"column_conv {name} {tag}: non-finite")
-            check(scale > 0, f"column_conv {name} {tag}: the plain version is all zero")
-            check(agrees(got, ref, tol), f"column_conv {name} {tag}: kernel disagrees "
-                  f"with plain version (max abs err {err}, scale {scale})")
-            broken = column_conv(feats, rb_broken, w, kernel, d, c, sz, pz, dtype)
+            check(torch.isfinite(got).all().item(), f"{label}: non-finite")
+            check(scale > 0, f"{label}: the plain version is all zero")
+            check(agrees(got, ref, tol), f"{label}: kernel disagrees with plain "
+                                         f"version (max abs err {err}, scale {scale})")
+            broken = column_conv(feats, rb_broken, w, kernel, d, c, sz, pz, dtype,
+                                 route=route)
             broken_err = float((broken - ref).abs().max())
-            check(not agrees(broken, ref, tol), f"column_conv {name} {tag}: a result "
-                  "with a BEV offset dropped passes the check: the check is vacuous")
+            check(not agrees(broken, ref, tol), f"{label}: a result with a BEV offset "
+                  "dropped passes the check: the check is vacuous")
             del got, ref, broken
-            ms = cuda_ms(lambda: column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype),
-                         reps=10)
-            plain = cuda_ms(lambda: csp.column_conv_dz(feats, rb, w, kernel, d, c, sz,
-                                                       pz, dtype), reps=3, warmup=1)
-            esize = torch.finfo(dtype).bits // 8
-            nbytes = ((feats.numel() + w.numel()) * esize + rb.numel() * 4
-                      + b * m * d_out * cout * 4)
-            bound, by = _bound(nbytes, 2 * c * cout * taps, dtype)
+            ms = cuda_ms(lambda: column_conv(feats, rb, w, kernel, d, c, sz, pz, dtype,
+                                             route=route), reps=10)
             row.update({f"{tag}_max_abs_err": err, f"{tag}_ref_scale": scale,
-                        f"{tag}_broken_err": broken_err, f"{tag}_ms": ms,
-                        f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
-                        f"{tag}_bound_by": by})
+                        f"{tag}_broken_err": broken_err, f"{tag}_ms": ms})
+            if route is None:
+                plain = cuda_ms(lambda: csp.column_conv_dz(feats, rb, w, kernel, d, c,
+                                                           sz, pz, dtype), reps=3, warmup=1)
+                nbytes = ((feats.numel() + w.numel()) * feats.element_size()
+                          + rb.numel() * 4 + b * m * d_out * cout * 4)
+                bound, by = _bound(nbytes, 2 * c * cout * taps, dtype)
+                row.update({f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
+                            f"{tag}_bound_by": by})
+        row.setdefault("bf16_fma_ms", row["bf16_ms"])
         print(f"column_conv {name} x{row['launches_per_forward']} (x{row['launches_df4']} "
               f"all-column): B={b} N={n} M={m} D={d}->{d_out} taps={taps} "
-              f"out sites={out_sites} bf16 {row['bf16_ms']:.4f} ms (plain "
-              f"{row['bf16_plain_ms']:.3f}, bound {row['bf16_bound_ms']:.4f} "
-              f"{row['bf16_bound_by']}, err {row['bf16_max_abs_err']:.3g}, broken copy "
-              f"err {row['bf16_broken_err']:.3g}) | f32 {row['f32_ms']:.4f} ms (plain "
-              f"{row['f32_plain_ms']:.3f}, err {row['f32_max_abs_err']:.3g})", flush=True)
+              f"out sites={out_sites} bf16 {row['route']} {row['bf16_ms']:.4f} ms (fma "
+              f"{row['bf16_fma_ms']:.4f}, plain {row['bf16_plain_ms']:.3f}, bound "
+              f"{row['bf16_bound_ms']:.4f} {row['bf16_bound_by']}, err "
+              f"{row['bf16_max_abs_err']:.3g} of scale {row['bf16_ref_scale']:.3g}, "
+              f"broken copy err {row['bf16_broken_err']:.3g}) | f32 fma "
+              f"{row['f32_ms']:.4f} ms (plain {row['f32_plain_ms']:.3f}, err "
+              f"{row['f32_max_abs_err']:.3g})", flush=True)
         rows.append(row)
     return rows
 
@@ -525,20 +543,23 @@ def compare_backends(det_a, det_b, radius=0.5):
     return out
 
 
-def column_phase(cfg, sd, anchors, points, num, dev, plan_counters, voxel_run):
-    """Phase 3b: the column backend end to end with the same weights."""
+def column_phase(cfg, sd, anchors, points, num, dev, plan_counters, voxel_run,
+                 want_launches, want_launches_df4):
+    """Phase 3b: the column backend end to end with the same weights, its
+    kernel launches per forward held to ``want_launches`` at
+    ``dense_from_stage`` 2 and to ``want_launches_df4`` at 4."""
     want = {"voxelizer_dropped": voxel_run["counters"]["voxelizer_dropped"],
             **{k: plan_counters[k] for k in ("stage0_columns_dropped",
                                              "stage1_columns_dropped",
                                              "stage2_columns_dropped")}}
     cfg_c = cfg.replace(sparse_backend="column")
     model, _ = create_second(cfg_c, device=dev, state_dict=sd)     # strict load
-    run = end_to_end_phase(model, anchors, points, num, {"column_conv": 6}, want)
+    run = end_to_end_phase(model, anchors, points, num, want_launches, want)
     del model
     model4, _ = create_second(cfg_c.replace(dense_from_stage=4), device=dev, state_dict=sd)
     want4 = {"voxelizer_dropped": want["voxelizer_dropped"], **plan_counters}
     det4, launches4, counters4 = counted_forward(model4, anchors, points, num,
-                                                 {"column_conv": 14}, want4)
+                                                 want_launches_df4, want4)
     run.update(launches_df4=launches4, counters_df4=counters4,
                valid_df4=int(det4.valid.sum()),
                vs_voxel=compare_backends(run["det"], voxel_run["det"]),
@@ -586,8 +607,9 @@ def reference_phase(sd, dev, backend):
             det, diag = model.inference(torch.from_numpy(pts).to(d),
                                         torch.from_numpy(num).to(d), anchors)
         out[d.type] = (det, {k: int(v) for k, v in diag.items()})
-        # float32: every z-window launch on the FMA route
-        want = ({} if d.type == "cpu" else {"column_conv": 6} if backend == "column"
+        # float32: every z-window and column launch on the FMA route
+        want = ({} if d.type == "cpu"
+                else {"column_conv": 6, "column_conv.fma": 6} if backend == "column"
                 else {"zwin_conv": 6, "zwin_conv.fma": 6})
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"reference check on {d.type}: launches {launched}, "
@@ -936,6 +958,12 @@ def main():
     col_layers, plan_counters = column_path_layers(cfg, points, num_t)
     col_rows = column_kernel_phase(col_layers, dev)
     del col_layers
+    want_col = route_launches("column_conv", col_rows, "launches_per_forward")
+    want_col4 = route_launches("column_conv", col_rows, "launches_df4")
+    check(want_col == {"column_conv": 6, "column_conv.fma": 1, "column_conv.mma": 5}
+          and want_col4 == {"column_conv": 14, "column_conv.fma": 1,
+                            "column_conv.mma": 13},
+          f"expected column launches per forward {want_col}, {want_col4}")
     gg_rows, gr_rows = train_kernel_phase(cfg, points, num_t, dev)
     torch.cuda.empty_cache()
     e2e = end_to_end_phase(model, anchors, points, num_t, want_zwin)
@@ -945,7 +973,8 @@ def main():
           f"counters {e2e['counters']}, launches {e2e['launches']}", flush=True)
     del model
     torch.cuda.empty_cache()
-    col = column_phase(cfg, sd, anchors, points, num_t, dev, plan_counters, e2e)
+    col = column_phase(cfg, sd, anchors, points, num_t, dev, plan_counters, e2e,
+                       want_col, want_col4)
     print(f"e2e column backend: p50 {col['latency_ms_p50']:.2f} ms, peak mem "
           f"{col['peak_mem_bytes'] / 2**30:.2f} GiB, valid detections per frame "
           f"{col['valid_per_frame']}, counters {col['counters']} (equal to the plain "
@@ -1042,16 +1071,27 @@ def main():
          "replaces": "vision3d_tpu/ops/pallas/column_conv.py:86",
          "launches": col["launches"]["column_conv"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in col_rows),
+         "launches_by_route": {r: col["launches"][f"column_conv.{r}"]
+                               for r in kernels.ROUTES["column_conv"]},
          "ms": per(col_rows, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(col_rows, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(col_rows, "bf16_bound_ms", "launches_per_forward"),
          "bound_by": bound_by([r for r in col_rows if r["launches_per_forward"]]),
          # no single PyTorch call gathers neighbour columns and convolves in z
          "library_ms": None,
+         # every launch on the float32-FMA route (the design before the mma route)
+         "ms_fma_route_only": per(col_rows, "bf16_fma_ms", "launches_per_forward"),
          "launches_dense_from_stage_4": col["launches_df4"]["column_conv"],
+         "launches_by_route_dense_from_stage_4": {
+             r: col["launches_df4"][f"column_conv.{r}"]
+             for r in kernels.ROUTES["column_conv"]},
          "ms_dense_from_stage_4": per(col_rows, "bf16_ms", "launches_df4"),
+         "ms_fma_route_only_dense_from_stage_4": per(col_rows, "bf16_fma_ms",
+                                                     "launches_df4"),
+         "bound_ms_dense_from_stage_4": per(col_rows, "bf16_bound_ms", "launches_df4"),
          "shapes": brief(col_rows, "launches_per_forward",
-                         ("launches_df4", "M", "D", "active_taps") + times)},
+                         ("launches_df4", "route", "M", "D", "active_taps",
+                          "active_out_sites", "bf16_fma_ms") + times)},
     ] + [
         {"name": f"zwin_align_{v}", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",

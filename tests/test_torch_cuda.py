@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from vision3d_tpu_torch.ops import column_conv as tcc
 from vision3d_tpu_torch.ops import column_sparse as tcsp
 from vision3d_tpu_torch.ops import sparse as tsp
 from vision3d_tpu_torch.ops import zwin_conv as tzw
@@ -365,27 +366,142 @@ def _cc_case(c, cout, d, kernel, seed, dev, b=2, n=200, m=531, sparse_z=True):
     return [torch.from_numpy(a).to(dev) for a in (cf.reshape(b, n, d * c), rb, w)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,cout,d,kernel,sz,pz", [
+COLUMN_SHAPES = [
     (4, 16, 41, (3, 3, 3), 1, 1), (16, 16, 41, (3, 3, 3), 1, 1),
     (16, 32, 41, (3, 3, 3), 2, 1), (32, 32, 21, (3, 3, 3), 1, 1),
     (32, 64, 21, (3, 3, 3), 2, 1), (64, 64, 11, (3, 3, 3), 1, 1),
     (64, 64, 11, (3, 3, 3), 2, 0), (64, 64, 5, (3, 3, 3), 1, 1),
-    (64, 64, 5, (3, 1, 1), 2, 0), (32, 32, 21, (3, 3, 3), 2, 0)])
+    (64, 64, 5, (3, 1, 1), 2, 0), (32, 32, 21, (3, 3, 3), 2, 0)]
+
+
+def _cc_counts():
+    return [tzw.LAUNCHES[k] for k in ("column_conv", "column_conv.fma", "column_conv.mma")]
+
+
+def _cc_check(cf, rb, w, kernel, d, c, sz, pz, dtype, route=None):
+    """One launch against the plain version, 1e-5 of the output scale,
+    counted once in all and once on its route; the output sites that no
+    tap reaches with a non-zero input slice are exactly zero."""
+    route_used = route or route_of(dtype, c, w.shape[1])
+    before = _cc_counts()
+    got = column_conv(cf, rb, w, kernel, d, c, sz, pz, dtype, route=route)
+    torch.cuda.synchronize()
+    after = _cc_counts()
+    assert after[0] == before[0] + 1
+    assert after[1:] == [before[1] + (route_used == "fma"), before[2] + (route_used == "mma")]
+    ref = tcsp.column_conv_dz(cf, rb, w, kernel, d, c, sz, pz, dtype)
+    scale = float(ref.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(got, ref, atol=1e-5 * scale, rtol=1e-5)
+    b, n, _ = cf.shape
+    nz = (cf.to(dtype).reshape(b, n, d, c) != 0).any(-1)
+    occ = tcsp.column_occupancy_batched(nz, rb, kernel, sz, pz)
+    assert not got[~occ.repeat_interleave(w.shape[1], dim=-1)].any()
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout,d,kernel,sz,pz", COLUMN_SHAPES)
 def test_column_conv_kernel_matches_plain(c, cout, d, kernel, sz, pz, dtype, cuda_device):
     """Every (C, Cout, D, kernel, stride_z, pad_z) of the column path, M
-    not a multiple of any tile. Both sum exact products of compute-dtype
-    inputs in float32, in other orders: 1e-5 of the output scale. An
-    all-miss column gives exact zeros."""
+    not a multiple of any tile, on the route the rule picks (in bf16 the
+    tensor cores for all but C = 4). Both sum exact products of
+    compute-dtype inputs in float32, in other orders: 1e-5 of the output
+    scale. An all-miss column gives exact zeros. With M = 531 and D_out
+    up to 41, M*D_out is no multiple of 64, and the "mma" route's run of
+    columns 512-575 spans the two frames."""
     cf, rb, w = _cc_case(c, cout, d, kernel, c + cout + d, cuda_device)
-    before = tzw.LAUNCHES["column_conv"]
-    got = column_conv(cf, rb, w, kernel, d, c, sz, pz, dtype)
-    torch.cuda.synchronize()
-    assert tzw.LAUNCHES["column_conv"] == before + 1
-    ref = tcsp.column_conv_dz(cf, rb, w, kernel, d, c, sz, pz, dtype)
-    assert float(ref.abs().max()) > 0
-    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
+    got = _cc_check(cf, rb, w, kernel, d, c, sz, pz, dtype)
     assert not got[1, 7].any()
+
+
+@pytest.mark.parametrize("c,cout,d,kernel,sz,pz", COLUMN_SHAPES[1:])
+def test_column_mma_route_dense_rows(c, cout, d, kernel, sz, pz, cuda_device):
+    """The tensor-core route where every z of every row is active (every
+    output site of a hit column listed, no tap skipped for a zero slice)."""
+    assert route_of(torch.bfloat16, c, cout) == "mma"
+    cf, rb, w = _cc_case(c, cout, d, kernel, 3 * c + d, cuda_device, sparse_z=False)
+    got = _cc_check(cf, rb, w, kernel, d, c, sz, pz, torch.bfloat16)
+    assert not got[1, 7].any()
+
+
+@pytest.mark.parametrize("cols", [1, 7, 128])
+def test_column_mma_any_run_of_columns(cols, cuda_device, monkeypatch):
+    """The result does not depend on the columns a block owns: runs of 1
+    (sites of one column only), 7 (runs across frame ends at odd places)
+    and 128 (up to 128 * 21 listed sites a block)."""
+    monkeypatch.setattr(tcc, "COLS_PER_BLOCK", cols)
+    cf, rb, w = _cc_case(32, 64, 21, (3, 3, 3), 17, cuda_device)
+    _cc_check(cf, rb, w, (3, 3, 3), 21, 32, 2, 1, torch.bfloat16)
+
+
+def test_column_mma_extreme_columns(cuda_device):
+    """Columns whose sites are extreme: frame 0's columns 64-191 (two whole
+    runs) miss every tap and come out exactly zero; column 200 hits one
+    row, active at z = 0 and z = D - 1 only, so only output z 0, 1 and
+    D - 2, D - 1 (pad_z 1) are non-zero; frame 1's rows are active at every
+    z; a row of -0.0 values counts as zero."""
+    d, c = 21, 32
+    cf, rb, w = _cc_case(c, 32, d, (3, 3, 3), 23, cuda_device, n=150, m=300)
+    n = cf.shape[1]
+    cf = cf.reshape(2, n, d, c)
+    cf[1] = torch.randn_like(cf[1])
+    cf[0, 5] = 0.0
+    cf[0, 5, 0] = 1.0
+    cf[0, 5, d - 1] = -2.0
+    cf[0, 6] = -0.0
+    cf = cf.reshape(2, n, d * c).contiguous()
+    rb = rb.reshape(2, 300, 9).clone()
+    rb[0, 64:192] = n
+    rb[0, 200] = n
+    rb[0, 200, 4] = 5
+    rb[0, 201] = 6
+    got = _cc_check(cf, rb.reshape(2, -1).contiguous(), w, (3, 3, 3), d, c, 1, 1,
+                    torch.bfloat16)
+    assert not got[0, 64:192].any() and not got[0, 201].any()
+    zs = got[0, 200].reshape(d, 32).abs().sum(-1).nonzero().flatten().tolist()
+    assert zs == [0, 1, d - 2, d - 1]
+
+
+@pytest.mark.parametrize("c,cout,d", [(16, 32, 41), (64, 64, 11)])
+def test_column_fma_route_forced_and_float32(c, cout, d, cuda_device):
+    """The FMA kernel forced in bf16 agrees with the plain version and is
+    counted on "fma"; float32 takes "fma" by default, bit for bit the
+    forced call; "mma" refuses float32 and C = 4, launching nothing."""
+    cf, rb, w = _cc_case(c, cout, d, (3, 3, 3), 31, cuda_device)
+    args = ((3, 3, 3), d, c, 1, 1)
+    _cc_check(cf, rb, w, *args, torch.bfloat16, route="fma")
+    got = _cc_check(cf, rb, w, *args, torch.float32)
+    forced = column_conv(cf, rb, w, *args, torch.float32, route="fma")
+    torch.cuda.synchronize()
+    assert torch.equal(got, forced)
+    before = _cc_counts()
+    with pytest.raises(ValueError):
+        column_conv(cf, rb, w, *args, torch.float32, route="mma")
+    cf4, rb4, w4 = _cc_case(4, 16, 41, (3, 3, 3), 31, cuda_device)
+    with pytest.raises(ValueError):
+        column_conv(cf4, rb4, w4, (3, 3, 3), 41, 4, 1, 1, torch.bfloat16, route="mma")
+    with pytest.raises(ValueError):
+        column_conv(cf, rb, w, *args, torch.bfloat16, route="wgmma")
+    assert _cc_counts() == before
+
+
+def test_column_mma_unaligned_bf16_view_and_wild_rows(cuda_device):
+    """A bf16 view off 16-byte alignment (what ``cp.async`` needs) is
+    copied by the wrapper, not read askew; negative rows and rows > N are
+    misses: both bit for bit the plain call's result."""
+    cf, rb, w = _cc_case(32, 32, 21, (3, 3, 3), 13, cuda_device)
+    x = cf.bfloat16()
+    args = ((3, 3, 3), 21, 32, 1, 1, torch.bfloat16)
+    ref = column_conv(x, rb, w, *args)
+    odd = torch.cat([x.new_zeros((1,)), x.reshape(-1)])[1:].reshape(x.shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    n = cf.shape[1]
+    wild = torch.where(rb == n, torch.full_like(rb, -1), rb)
+    wild[0, ::7] = torch.where(wild[0, ::7] < 0, n + 5, wild[0, ::7])
+    for got in (column_conv(odd, rb, w, *args), column_conv(x, wild, w, *args)):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
 
 
 def test_column_conv_kernel_dense_rows_and_unaligned_base(cuda_device):

@@ -23,27 +23,59 @@
 // of D*C values (328 to 2816 bytes each, neighbours share them through L2)
 // and writes D_out*Cout floats; the dense-z output alone is 2 to 4 times the
 // input bytes, and a column holds only a few active voxels, so bytes bound
-// it. Design: one output column per warp at a time. Lane k2 reads the
-// column's rulebook entry; the warp copies the K2 neighbour rows into its
-// own slice of shared memory with cp.async, all rows in flight at once, in
-// the widest pieces the row size and base pointers allow (a 4-channel bf16
-// row is 328 bytes: 8-byte pieces), and then notes per row which z hold any
-// non-zero value (a 64-bit mask, OR-reduced over the lanes). Each group of
-// min(32, Cout) lanes takes one output z, lanes over output channels. From
-// the masks it forms the bit set of its taps (k2, dz) whose input z-slice
-// is non-zero; the warp walks the union of its groups' sets in (k2, dz)
-// order, the order of the plain version's GEMM columns, so a tap whose
-// input is all zero costs nothing (it would add exact zeros) and the work
-// follows the active voxels, not D. The input value is a shared-memory
-// broadcast; the weight row is read by consecutive lanes and stays in
-// L1/L2; the output row is written coalesced along (zo, co). FMA in
-// float32: a first kernel that is right; tensor cores, staged weights and a
-// fused BN + ReLU + mask epilogue are later work.
+// it.
+//
+// Two routes, chosen by the wrapper from (dtype, C, Cout) alone, with the
+// rule of gather_gemm.cu and zwin_conv.cu:
+//
+// * "mma" (column_conv_mma_kernel), bf16 with C % 16 == 0: the GEMM rows
+//   are the (column, zo) sites, the taps k = dz*K2 + k2 (the weight's own
+//   row order), and tap k of a site reads the z-slice z = zo*stride_z -
+//   pad_z + dz of its k2-th neighbour row: row (b*N + row)*D + z of
+//   col_feats read as one flat (B*N*D, C) table. So the tile of
+//   gather_tile_mma.cuh computes it once each tile's rulebook is built.
+//   Most (column, zo) sites have no input at all (a column holds a few
+//   voxels of its D), so tiles are built from the active sites only:
+//   1. column_zmask_kernel reads every input row once and writes a 64-bit
+//      mask of the z whose C-wide slice holds a non-zero value (one warp a
+//      row, 16-byte loads, the bits OR-reduced over the warp);
+//   2. column_conv_mma_kernel: a block owns a run of `cols` consecutive
+//      output columns (b*M + m). From the rulebook and the row masks it
+//      forms each column's active zo (some tap reaches a non-zero slice),
+//      compacts the block's active (column, zo) sites into a list in
+//      shared memory (a block scan of the per-column counts) and writes
+//      exact zeros to the output rows of its inactive sites, coalesced, so
+//      every output row is written once and no zero pass or host sync is
+//      needed. Then per tile of 64 listed sites it builds grow[i*K + k]
+//      ((b*N + row)*D + z, or -1 when the row is a miss, z is outside [0,
+//      D) or the slice is all zero: a zero-filled miss that reads nothing),
+//      hit[k] and the map of output rows (b*M + m)*D_out + zo, and runs
+//      tile_mma: cp.async staging, only the taps some site of the tile
+//      hits, the two-stage ring, ldmatrix + mma.sync m16n8k16 bf16 -> f32.
+//   The row masks are scratch of B*N x 8 bytes that the wrapper allocates.
+// * "fma" (column_conv_kernel), float32 (the card-vs-CPU checks need exact
+//   f32 products) and bf16 at C = 4: one output column per warp at a
+//   time. Lane k2 reads the column's rulebook entry; the warp copies the
+//   K2 neighbour rows into its own slice of shared memory with cp.async,
+//   all rows in flight at once, in the widest pieces the row size and base
+//   pointers allow (a 4-channel bf16 row is 328 bytes: 8-byte pieces), and
+//   then notes per row which z hold any non-zero value (a 64-bit mask,
+//   OR-reduced over the lanes). Each group of min(32, Cout) lanes takes
+//   one output z, lanes over output channels. From the masks it forms the
+//   bit set of its taps (k2, dz) whose input z-slice is non-zero; the warp
+//   walks the union of its groups' sets in (k2, dz) order, the order of
+//   the plain version's GEMM columns, so a tap whose input is all zero
+//   costs nothing (it would add exact zeros) and the work follows the
+//   active voxels, not D. The input value is a shared-memory broadcast;
+//   the weight row is read by consecutive lanes and stays in L1/L2; the
+//   output row is written coalesced along (zo, co). FMA in float32.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gather_tile_mma.cuh"
 
 namespace {
 
@@ -257,15 +289,230 @@ cudaError_t dispatch(const Params& p, int cout) {
   }
 }
 
+// ---------------------------------------------------------------- mma route
+
+namespace gt = gather_tile;
+typedef gt::bf16 bf16;
+typedef unsigned long long u64;
+
+constexpr int MAX_COLS = 128;  // output columns of one block: one thread each
+
+// 1. Per input row b*N + n: bit z set iff col_feats[b, n, z*C : +C] holds a
+// non-zero value (+-0 are zero). One warp a row; ppz_log2 = log2(C / 8),
+// the 16-byte pieces of one z-slice.
+__global__ void __launch_bounds__(256)
+column_zmask_kernel(const bf16* __restrict__ feats, u64* __restrict__ zmask,
+                    long long rows, int pieces, int ppz_log2) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long warp0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long r = warp0; r < rows; r += nwarps) {
+    const uint4* src = reinterpret_cast<const uint4*>(feats) + r * pieces;
+    unsigned lo = 0u, hi = 0u;
+    for (int p = lane; p < pieces; p += 32) {
+      const uint4 v = src[p];
+      if ((v.x | v.y | v.z | v.w) & 0x7fff7fffu) {
+        const int z = p >> ppz_log2;
+        if (z < 32) lo |= 1u << z;
+        else hi |= 1u << (z - 32);
+      }
+    }
+    lo = __reduce_or_sync(full, lo);
+    hi = __reduce_or_sync(full, hi);
+    if (lane == 0) zmask[r] = ((u64)hi << 32) | lo;
+  }
+}
+
+// Shared memory of one block after the tile's (gt::smem_bytes rounded up to
+// 16): rmask [cols*K2] u64, act [cols] u64, rbase [cols*K2] int, orow
+// [THREADS] int (T <= THREADS of them used), list [cols*D_out] u16.
+size_t column_smem_bytes(int cols, int K2, int D_out) {
+  return (size_t)cols * K2 * 12 + (size_t)cols * 8 + (size_t)gt::THREADS * 4 +
+         (size_t)cols * D_out * 2;
+}
+
+// 2. One block per run of `cols` output columns (see the file's note).
+template <int COUT>
+__global__ void __launch_bounds__(gt::THREADS)
+column_conv_mma_kernel(const bf16* __restrict__ feats,
+                       const int* __restrict__ rb,
+                       const u64* __restrict__ zmask,
+                       const bf16* __restrict__ weight, float* __restrict__ out,
+                       int B, int N, int M, int K2, int D, int C, int kz,
+                       int stride_z, int pad_z, int D_out, int cols,
+                       int col_off) {
+  constexpr int T = gt::Shape<COUT>::T;
+  const int K = kz * K2;
+  extern __shared__ int4 smem_raw[];
+  const gt::TileSmem sm = gt::carve_smem<COUT>(smem_raw, K, C);
+  unsigned char* col_raw = reinterpret_cast<unsigned char*>(smem_raw) + col_off;
+  u64* rmask = reinterpret_cast<u64*>(col_raw);
+  u64* act = rmask + cols * K2;
+  int* rbase = reinterpret_cast<int*>(act + cols);
+  int* orow = rbase + cols * K2;
+  unsigned short* list = reinterpret_cast<unsigned short*>(orow + gt::THREADS);
+  __shared__ int warp_sum[gt::THREADS / 32];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int total_cols = B * M;  // < INT_MAX, checked by the launcher
+  const int col0 = blockIdx.x * cols;
+  const int ncols = min(cols, total_cols - col0);
+
+  // the rulebook rows of the block's columns and their non-zero z
+  const long long e0 = (long long)col0 * K2;
+  for (int e = tid; e < ncols * K2; e += gt::THREADS) {
+    const int b = (col0 + e / K2) / M;
+    const int row = rb[e0 + e];
+    const bool on = row >= 0 && row < N;
+    rbase[e] = on ? (b * N + row) * D : -1;  // B*N*D < INT_MAX
+    rmask[e] = on ? zmask[(long long)b * N + row] : 0ull;
+  }
+  __syncthreads();
+
+  // per column its active zo: padded z zo*stride_z + dz holds input z
+  // zo*stride_z - pad_z + dz; the masks hold no bit at or above D, and the
+  // shift by pad_z leaves none below it, which is the bounds check
+  const u64 window = (1ull << kz) - 1ull;
+  int count = 0;
+  if (tid < ncols) {
+    u64 any = 0ull;
+    for (int k2 = 0; k2 < K2; ++k2) any |= rmask[tid * K2 + k2];
+    any <<= pad_z;
+    u64 a = 0ull;
+    if (any)
+      for (int zo = 0; zo < D_out; ++zo)
+        if ((any >> (zo * stride_z)) & window) a |= 1ull << zo;
+    act[tid] = a;
+    count = __popcll(a);
+  }
+  // exclusive scan of the counts over the block's columns
+  int incl = count;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, s);
+    if (lane >= s) incl += v;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int sites = 0, j = incl - count;  // the block's active sites, and mine
+  for (int w = 0; w < gt::THREADS / 32; ++w) {
+    if (w < warp) j += warp_sum[w];
+    sites += warp_sum[w];
+  }
+  if (tid < ncols)
+    for (u64 a = act[tid]; a; a &= a - 1ull)
+      list[j++] = (unsigned short)((tid << 6) | (__ffsll((long long)a) - 1));
+
+  // exact zeros on the output rows of the inactive sites, coalesced: Q
+  // threads a row of COUT floats, one float4 each
+  {
+    constexpr int Q = COUT / 4;
+    float4* o4 = reinterpret_cast<float4*>(out) + (long long)col0 * D_out * Q;
+    const int q = tid % Q;
+    for (int r = tid / Q; r < ncols * D_out; r += gt::THREADS / Q) {
+      const int c = r / D_out;
+      if (!((act[c] >> (r - c * D_out)) & 1ull))
+        o4[r * Q + q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+
+  for (int t0 = 0; t0 < sites; t0 += T) {
+    for (int k = tid; k < K; k += gt::THREADS) sm.hit[k] = 0;
+    __syncthreads();
+    // the tile's rulebook: grow[i*K + k], k = dz*K2 + k2
+    for (int e = tid; e < T * K; e += gt::THREADS) {
+      const int i = e / K, k = e - i * K;
+      int g = -1;
+      if (t0 + i < sites) {
+        const int v = list[t0 + i];
+        const int c = v >> 6, zo = v & 63;
+        const int dz = k / K2, k2 = k - dz * K2;
+        const int z = zo * stride_z - pad_z + dz;
+        const int ck = c * K2 + k2;
+        if (z >= 0 && z < D && ((rmask[ck] >> z) & 1ull)) {
+          g = rbase[ck] + z;
+          sm.hit[k] = 1;
+        }
+      }
+      sm.grow[e] = g;
+    }
+    if (tid < T) {
+      int r = -1;
+      if (t0 + tid < sites) {
+        const int v = list[t0 + tid];
+        r = (col0 + (v >> 6)) * D_out + (v & 63);  // B*M*D_out < INT_MAX
+      }
+      orow[tid] = r;
+    }
+    __syncthreads();
+    gt::tile_mma<COUT, true>(feats, weight, out, 0, 0, K, C, sm, orow);
+    __syncthreads();  // the next tile rewrites grow, hit and orow
+  }
+}
+
+template <int COUT>
+cudaError_t launch_mma_cout(const Params& p, const u64* zm, int cols) {
+  const size_t col_off =
+      (gt::smem_bytes<COUT>(p.kz * p.K2, p.C) + 15) / 16 * 16;
+  const size_t smem = col_off + column_smem_bytes(cols, p.K2, p.D_out);
+  auto kern = column_conv_mma_kernel<COUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (int)(((long long)p.B * p.M + cols - 1) / cols);
+  kern<<<blocks, gt::THREADS, smem, p.stream>>>(
+      static_cast<const bf16*>(p.col_feats), static_cast<const int*>(p.rb), zm,
+      static_cast<const bf16*>(p.weight), static_cast<float*>(p.out), p.B, p.N,
+      p.M, p.K2, p.D, p.C, p.kz, p.stride_z, p.pad_z, p.D_out, cols,
+      (int)col_off);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_mma(const Params& p, u64* zm, int cout, int cols) {
+  // C % 16 == 0 (16-byte pieces, k16 steps), a C power of two (the wrapper
+  // checks it), every flat row and output row index in int, 1..128 columns
+  if (p.C % 16 || (long long)p.B * p.N * p.D >= INT_MAX ||
+      (long long)p.B * p.M * p.D_out >= INT_MAX - 64 || cols < 1 ||
+      cols > MAX_COLS || p.D_out > 64)
+    return cudaErrorInvalidValue;
+  const long long rows = (long long)p.B * p.N;
+  int ppz_log2 = 0;
+  while ((8 << ppz_log2) < p.C) ++ppz_log2;
+  long long blocks = (rows + 7) / 8;  // 8 warps, one row each
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond this
+  column_zmask_kernel<<<(unsigned)blocks, 256, 0, p.stream>>>(
+      static_cast<const bf16*>(p.col_feats), zm, rows, p.D * p.C / 8,
+      ppz_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (cout) {
+    case 16:
+      return launch_mma_cout<16>(p, zm, cols);
+    case 32:
+      return launch_mma_cout<32>(p, zm, cols);
+    case 64:
+      return launch_mma_cout<64>(p, zm, cols);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). dtype 0 = float32, 1 = bf16
-// for both col_feats and weight; C must be a power of two, D + 2*pad_z <=
-// 60, K2 <= 9, kz*K2 <= 32. Returns the cudaError_t of the launch.
+// for both col_feats and weight; route 0 = fma, 1 = mma (bf16 only, C % 16
+// == 0; col_feats and weight 16-byte aligned; zmask scratch of B*N 64-bit
+// words; cols output columns per block). C must be a power of two, D +
+// 2*pad_z <= 60, K2 <= 9, kz*K2 <= 32. Returns the cudaError_t of the
+// first launch that failed.
 extern "C" int column_conv_launch(const void* col_feats, const void* rb,
-                                  const void* weight, void* out, int B, int N,
-                                  int M, int K2, int D, int C, int cout,
-                                  int kz, int stride_z, int pad_z, int dtype,
+                                  const void* weight, void* out, void* zmask,
+                                  int B, int N, int M, int K2, int D, int C,
+                                  int cout, int kz, int stride_z, int pad_z,
+                                  int dtype, int route, int cols,
                                   void* stream) {
   if (B <= 0 || M <= 0) return 0;
   if (N <= 0 || C <= 0 || (C & (C - 1)) || D <= 0 || pad_z < 0 ||
@@ -293,9 +540,11 @@ extern "C" int column_conv_launch(const void* col_feats, const void* rb,
   if (p.D_out <= 0) return (int)cudaErrorInvalidValue;
   p.stream = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
+  if (route == 1 && dtype == 1) {
+    err = dispatch_mma(p, static_cast<u64*>(zmask), cout, cols);
+  } else if (route == 0 && dtype == 0) {
     err = dispatch<float>(p, cout);
-  } else if (dtype == 1) {
+  } else if (route == 0 && dtype == 1) {
     err = dispatch<__nv_bfloat16>(p, cout);
   } else {
     err = cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Tiles of gathered rows on Hopper's tensor cores (sm_90a): the part that
-// the rulebook gather-GEMM (gather_gemm.cu) and the z-window conv
-// (zwin_conv.cu) share on their "mma" routes.
+// the rulebook gather-GEMM (gather_gemm.cu), the z-window conv
+// (zwin_conv.cu) and the column conv (column_conv.cu) share on their "mma"
+// routes.
 //
 // A block of 4 warps owns a tile of T = 64 consecutive flattened sites
 // (b*M + m) and all Cout columns of out (B*M, Cout) f32:
@@ -25,7 +26,9 @@
 // * two stages: the copies of the next hit tap are in flight while the
 //   current one is multiplied with ldmatrix (.trans for B) and mma.sync
 //   m16n8k16 bf16 -> f32. The sums stay in registers across all taps; the
-//   epilogue writes the f32 rows below B*M.
+//   epilogue writes the f32 rows below B*M, or, with ROW_MAP, site i's sum
+//   to row orow[i] of out (a shared-memory map the caller writes beside
+//   grow; -1: no site), for a caller whose sites are not consecutive rows.
 //
 // Needs C % 16 == 0, feats and W 16-byte aligned, B*N and B*M + 64 below
 // INT_MAX (the launchers check the sizes, the wrappers the alignment).
@@ -154,15 +157,17 @@ __device__ __forceinline__ TileSmem carve_smem(void* raw, int K, int C) {
   return sm;
 }
 
-// The tile's product, once sm.grow and sm.hit are written and a barrier
-// has passed. out is (total, COUT) row-major; rows >= total are not
-// written.
-template <int COUT>
+// The tile's product, once sm.grow and sm.hit (and orow with ROW_MAP) are
+// written and a barrier has passed. out is (total, COUT) row-major; rows >=
+// total are not written. With ROW_MAP, site i goes to row orow[i] and
+// total and tile0 are not read.
+template <int COUT, bool ROW_MAP = false>
 __device__ __forceinline__ void tile_mma(const bf16* __restrict__ feats,
                                          const bf16* __restrict__ weight,
                                          float* __restrict__ out, int total,
                                          int tile0, int K, int C,
-                                         const TileSmem& sm) {
+                                         const TileSmem& sm,
+                                         const int* orow = nullptr) {
   typedef Shape<COUT> S;
   constexpr int T = S::T, MT = S::MT, NT = S::NT, BS = S::BS;
   const int ck_max = C < CK_MAX ? C : CK_MAX;
@@ -265,15 +270,28 @@ __device__ __forceinline__ void tile_mma(const bf16* __restrict__ feats,
   // 2*(lane%4) + {0, 1}
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const int r0 = tile0 + wm0 + mt * 16 + (lane >> 2);
+    const int i0 = wm0 + mt * 16 + (lane >> 2);
+    int r0, r1;
+    bool on0, on1;
+    if constexpr (ROW_MAP) {
+      r0 = orow[i0];
+      r1 = orow[i0 + 8];
+      on0 = r0 >= 0;
+      on1 = r1 >= 0;
+    } else {
+      r0 = tile0 + i0;
+      r1 = r0 + 8;
+      on0 = r0 < total;
+      on1 = r1 < total;
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = wn0 + nt * 8 + (lane & 3) * 2;
-      if (r0 < total)
+      if (on0)
         *reinterpret_cast<float2*>(out + (long long)r0 * COUT + n) =
             make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r0 + 8 < total)
-        *reinterpret_cast<float2*>(out + (long long)(r0 + 8) * COUT + n) =
+      if (on1)
+        *reinterpret_cast<float2*>(out + (long long)r1 * COUT + n) =
             make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   }

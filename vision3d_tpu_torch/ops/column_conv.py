@@ -1,16 +1,29 @@
-"""Column-sparse conv: wrapper of the CUDA kernel ``csrc/column_conv.cu``.
+"""Column-sparse conv: wrapper of the CUDA kernels ``csrc/column_conv.cu``.
 
 Port of the TPU kernel ``vision3d_tpu/ops/pallas/column_conv.py:86``
 (``column_conv_pallas``): gather the K2 BEV-neighbour columns as flat
 ``D*C`` rows, then per output z one ``(kz*K2*C) x Cout`` product, with
 ``stride_z`` and ``pad_z``. The TPU wrapper padded rows to 1024 lanes,
-appended a zero row, padded z and re-tiled the rulebook; the CUDA kernel
-reads ``(col_feats, rb_idx, weight)`` as the model holds them and treats a
+appended a zero row, padded z and re-tiled the rulebook; the CUDA kernels
+read ``(col_feats, rb_idx, weight)`` as the model holds them and treat a
 rulebook entry outside ``[0, N)`` as a miss.
+
+Two routes, picked by ``gather_gemm.route_of(compute_dtype, C, Cout)``, the
+rule of the other convs: ``"mma"`` (tensor cores: the (column, zo) sites
+that some tap reaches with a non-zero input z-slice are compacted per block
+in shared memory, in tiles of 64 whose rulebook of ``kz*K2`` taps is built
+there and run by the gather-GEMM tile of ``csrc/gather_tile_mma.cuh``; the
+other output rows get exact zeros) for bfloat16 with ``C % 16 == 0``;
+``"fma"`` (float32 FMA) for float32, whose card-vs-CPU checks need exact
+products, and for C = 4. One route never stands in for the other: a failed
+launch raises.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops.column_sparse.column_conv_dz``); on a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES["column_conv"]`` counts kernel launches.
+kernel or raises. ``LAUNCHES["column_conv"]`` counts the wrapper's
+launches (one a call, though "mma" enqueues a row-mask pass before its
+kernel), ``LAUNCHES["column_conv.mma"]`` and ``["column_conv.fma"]`` those
+of each route.
 """
 
 import ctypes
@@ -19,22 +32,40 @@ import torch
 
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import column_sparse as csp
+from vision3d_tpu_torch.ops.gather_gemm import aligned16, route_of
 
 LAUNCHES = kernels.LAUNCHES
+ROUTES = kernels.ROUTES["column_conv"]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COUTS = (16, 32, 64)
 _MAX_D, _MAX_K2, _MAX_TAPS = 60, 9, 32   # csrc/column_conv.cu
+_INT_MAX = 2 ** 31 - 1
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_VP] * 4 + [_CI] * 11 + [_VP]
+_ARGTYPES = [_VP] * 5 + [_CI] * 13 + [_VP]
+COLS_PER_BLOCK = None   # an int (1..128) forces the rule below
+
+
+def cols_per_block(d_out):
+    """Output columns a block of the "mma" route owns: 32 at D_out above
+    16, else 64, so a block covers at most ~1300 (column, z) output rows
+    and lists a few tiles of 64 active sites. On the H100
+    (tools/microbench_torch_column.py) 32 ran faster than 64 at D_out 21
+    and 41 and slower at D_out 5; 16 and 128 were slower at all shapes
+    but one."""
+    if COLS_PER_BLOCK is not None:
+        return COLS_PER_BLOCK
+    return 32 if d_out > 16 else 64
 
 
 def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, route=None):
     """col_feats (B, N, D*C) flat z-major rows; rb_idx (B, M*K2) int32 with
     misses = N (K2 = ky*kx minor); weight (kz*K2*C, Cout), taps
     (dz, dy, dx)-major. Returns (B, M, D_out*Cout) f32 with
     ``D_out = (D + 2*pad_z - kz)//stride_z + 1``. Inputs are rounded to
-    ``compute_dtype`` (float32 or bfloat16); sums are float32."""
+    ``compute_dtype`` (float32 or bfloat16); sums are float32. ``route``
+    (card only) forces a kernel where the comparisons need both; by
+    default ``route_of`` picks it."""
     if col_feats.device.type == "cpu":
         return csp.column_conv_dz(col_feats, rb_idx, weight, kernel, d, c,
                                   stride_z, pad_z, compute_dtype)
@@ -74,9 +105,21 @@ def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
                          f"D_out {d_out}")
     if not (col_feats.is_contiguous() and rb_idx.is_contiguous()):
         raise ValueError("column_conv: col_feats and rb_idx must be contiguous")
+    chosen = route_of(compute_dtype, c, cout)
+    route = chosen if route is None else route
+    if route not in ROUTES or (route == "mma" and chosen != "mma"):
+        raise ValueError(f"column_conv: route {route!r} cannot take "
+                         f"{compute_dtype} {c}x{cout}")
     m = rb_idx.shape[1] // k2
+    if route == "mma" and (b * n * d >= _INT_MAX or b * m * d_out + 64 >= _INT_MAX):
+        raise ValueError(f"column_conv: B*N*D {b * n * d} or B*M*D_out "
+                         f"{b * m * d_out} too large for the mma route")
     x = col_feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
+    zmask = None
+    if route == "mma":
+        x, w = aligned16(x), aligned16(w)
+        zmask = torch.empty((b * n,), dtype=torch.int64, device=col_feats.device)
     out = torch.empty((b, m, d_out * cout), dtype=torch.float32,
                       device=col_feats.device)
     if b == 0 or m == 0:
@@ -85,6 +128,8 @@ def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
         kernels.launch(
             "column_conv", _ARGTYPES,
             x.data_ptr(), rb_idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, n, m, k2, d, c, cout, kz, stride_z, pad_z,
-            _DTYPES[compute_dtype], torch.cuda.current_stream().cuda_stream)
+            0 if zmask is None else zmask.data_ptr(),
+            b, n, m, k2, d, c, cout, kz, stride_z, pad_z, _DTYPES[compute_dtype],
+            ROUTES.index(route), cols_per_block(d_out),
+            torch.cuda.current_stream().cuda_stream, route=route)
     return out
