@@ -16,8 +16,13 @@ Phases, each printing lines before the last:
      float32 the FMA route, 1e-4 of the scale), each shape's route
      printed, with CUDA-event medians of kernel and plain times; on the
      same layers the two variants on gathered windows, zwin_align_v1 and
-     zwin_align_v3, against their plain versions and against zwin_conv's
-     output;
+     zwin_align_v3, on the same routes, against their plain versions and
+     against zwin_conv's output, each check repeated on a broken result of
+     the same route (tap (dz 1, k2 4) dropped from the masks) that must
+     fail it, with two bounds (the rows the masks select read once, and
+     every gathered window read once); then the six layers of a forward
+     through conv_zwin_apply_v1 / _v3: 6 launches of each variant, 5 on
+     the tensor-core route;
   2b. the training path's kernels, gather_gemm (every sparse conv, forward
      and dX) and gather_rows (the dW regather), against their plain
      versions at every shape a training step gives them, on the real
@@ -200,40 +205,93 @@ ALIGN = {"v1": (zw.zwin_align_gemm_v1, zw.zwin_align_gemm_v1_plain, zw.pair_mask
          "v3": (zw.zwin_align_gemm_v3, zw.zwin_align_gemm_v3_plain, zw.shift_masks)}
 
 
-def align_variant(variant, label, feats, start, pattern, w, dtype, tol, zwin_out, taps):
+def align_selected(variant, masks):
+    """(rows, routed): the gathered rows that some set mask routes to a tap
+    (each read once) and the (row, tap) products the masks ask for: the
+    least work of B6 / B7 on these masks. v3 entries with j + s > 2 name no
+    tap."""
+    on = masks != 0
+    if variant == "v1":
+        rows = sum(int(on[..., [zw.PAIRS.index((dz, j)) for dz in range(j, 3)]]
+                       .any(-1).sum()) for j in range(3))
+        return rows, int(on.sum())
+    names_tap = torch.tensor([[j + s < 3 for j in range(3)] for s in range(3)],
+                             device=masks.device)
+    on = on.reshape(3, *on.shape[1:3], 9, 3) & names_tap[:, None, None, None, :]
+    return int(on.any(0).sum()), int(on.sum())
+
+
+def align_bound_ms(variant, g_km, masks, cout, dtype):
+    """Bounds of B6 / B7 on these windows and masks, with 2*C*Cout flops
+    per routed product: (least, bound_by, every_window, rows). ``least``
+    reads the masks, the rows they select and the weight once;
+    ``every_window`` every gathered window instead of the selected rows."""
+    b, _, m, kzc = g_km.shape
+    c = kzc // 3
+    rows, routed = align_selected(variant, masks)
+    esize = g_km.element_size()
+    fixed = (masks.numel() + 27 * c * cout) * esize + b * m * cout * 4
+    least, by = _bound(fixed + rows * c * esize, 2 * c * cout * routed, dtype)
+    every, _ = _bound(fixed + g_km.numel() * esize, 2 * c * cout * routed, dtype)
+    return least, by, every, rows
+
+
+def drop_tap(variant, masks, dz=1, k2=4):
+    """The masks with tap (dz, k2) of every site dropped: the input of a
+    deliberately broken result."""
+    out = masks.clone()
+    for j in range(dz + 1):
+        if variant == "v1":
+            out[:, k2, :, zw.PAIRS.index((dz, j))] = 0
+        else:
+            out.view(3, *out.shape[1:3], 9, 3)[dz - j, :, :, k2, j] = 0
+    return out
+
+
+def align_variant(variant, label, feats, start, pattern, w, dtype, tol, zwin_out, route):
     """One of the two kernels on gathered windows (B6 v1, B7 v3) on a
-    z-window layer of the path: against its plain version and against the
-    z-window kernel's output on the same layer; kernel and plain times on
-    the gathered windows and masks, and the bound for reading those once."""
+    z-window layer of the path, on ``route`` (None: the one ``route_of``
+    picks): against its plain version and against the z-window kernel's
+    output on the same layer, the check repeated on a broken result that
+    must fail it; the kernel's time and, on the default route, the plain
+    time and two bounds: ``bound_ms`` reads the masks, the rows they
+    select and the weight once (the least bytes), ``bound_all_ms`` every
+    gathered window."""
     fn, plain, make_masks = ALIGN[variant]
-    b, n, c = feats.shape
-    m, cout = start.shape[1] // 9, w.shape[1]
+    c, m, cout = feats.shape[2], start.shape[1] // 9, w.shape[1]
+    label = f"zwin_align_{variant} {label} ({route or route_of(dtype, c, cout)})"
     g_km = zw.gather_windows_km(feats, start, dtype)
     masks = make_masks(pattern, m, dtype)
-    got = fn(g_km, masks, w)
+    got = fn(g_km, masks, w, route=route)
     torch.cuda.synchronize()
     ref = plain(g_km, masks, w)
     err = float((got - ref).abs().max())
-    check(torch.isfinite(got).all().item(), f"zwin_align_{variant} {label}: non-finite")
-    check(agrees(got, ref, tol), f"zwin_align_{variant} {label}: kernel disagrees "
-                                 f"with plain version (max abs err {err})")
-    check(agrees(got, zwin_out, tol), f"zwin_align_{variant} {label}: disagrees with "
-          f"zwin_conv (max abs err {float((got - zwin_out).abs().max())})")
-    del got, ref
-    ms = cuda_ms(lambda: fn(g_km, masks, w), reps=10)
-    plain_ms = cuda_ms(lambda: plain(g_km, masks, w), reps=3, warmup=1)
-    esize = g_km.element_size()
-    nbytes = ((g_km.numel() + masks.numel() + w.numel()) * esize + b * m * cout * 4)
-    bound, by = _bound(nbytes, 2 * c * cout * taps, dtype)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by}
+    check(torch.isfinite(got).all().item(), f"{label}: non-finite")
+    check(agrees(got, ref, tol), f"{label}: kernel disagrees with plain version "
+                                 f"(max abs err {err})")
+    check(agrees(got, zwin_out, tol), f"{label}: disagrees with zwin_conv "
+          f"(max abs err {float((got - zwin_out).abs().max())})")
+    broken = fn(g_km, drop_tap(variant, masks), w, route=route)
+    broken_err = float((broken - ref).abs().max())
+    check(not agrees(broken, ref, tol), f"{label}: a result with a tap dropped passes "
+                                        "the check: the check is vacuous")
+    del got, ref, broken
+    res = {"max_abs_err": err, "broken_err": broken_err,
+           "ms": cuda_ms(lambda: fn(g_km, masks, w, route=route), reps=10)}
+    if route is None:
+        bound, by, bound_all, rows = align_bound_ms(variant, g_km, masks, cout, dtype)
+        res.update({"plain_ms": cuda_ms(lambda: plain(g_km, masks, w), reps=3, warmup=1),
+                    "bound_ms": bound, "bound_by": by, "bound_all_ms": bound_all,
+                    "rows": rows})
+    return res
 
 
 def align_variants_path(layers, dev):
     """B6 and B7 have no model path: their path is the six z-window layers
     of the forward, through ``conv_zwin_apply_v1`` / ``_v3`` (window gather
-    and masks in plain PyTorch, then the kernel). Returns the launch counts
-    of that run."""
+    and masks in plain PyTorch, then the kernel), in bf16: 6 launches of
+    each, 5 on the tensor-core route and s0 subm 4x16 on FMA. Returns the
+    launch counts of that run."""
     gen = torch.Generator(device=dev).manual_seed(3)
     zw.reset_launches()
     for name, count, c, cout, n, start, pattern in layers:
@@ -245,8 +303,12 @@ def align_variants_path(layers, dev):
                 check(bool(torch.isfinite(out).all()), f"{fn.__name__} {name}: non-finite")
     torch.cuda.synchronize()
     launches = dict(zw.LAUNCHES)
-    check(launches["zwin_align_v1"] == 6 and launches["zwin_align_v3"] == 6
-          and launches["zwin_conv"] == 0, f"variants run launched {launches}")
+    want = {"zwin_conv": 0}
+    for v in ALIGN:
+        want.update({f"zwin_align_{v}": 6, f"zwin_align_{v}.mma": 5,
+                     f"zwin_align_{v}.fma": 1})
+    check(all(launches[k] == n for k, n in want.items()),
+          f"variants run launched {launches}, not {want}")
     return launches
 
 
@@ -254,7 +316,7 @@ def kernel_phase(layers, dev):
     """Phase 2: B1 against its plain version at every path shape, on each
     route the widths allow (in bf16 the tensor-core route where
     ``route_of`` picks it and the FMA route at every shape; in float32
-    the FMA route), and B6 and B7 on the same layers."""
+    the FMA route), and B6 and B7 on the same layers and routes."""
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = []
     for name, count, c, cout, n, start, pattern in layers:
@@ -289,12 +351,13 @@ def kernel_phase(layers, dev):
                 bound, by, taps = zwin_bound_ms(b, n, c, cout, start, pattern, dtype)
                 row.update({f"{tag}_plain_ms": plain, f"{tag}_bound_ms": bound,
                             f"{tag}_bound_by": by, "active_taps": taps})
-                for variant in ALIGN:
-                    res = align_variant(variant, f"{name} {tag}", feats, start, pattern,
-                                        w, dtype, tol, got, taps)
-                    row.update({f"{variant}_{tag}_{k}": v for k, v in res.items()})
+            for variant in ALIGN:
+                res = align_variant(variant, f"{name} {tag}", feats, start, pattern,
+                                    w, dtype, tol, got, route)
+                row.update({f"{variant}_{tag}_{k}": v for k, v in res.items()})
             del got
-        row.setdefault("bf16_fma_ms", row["bf16_ms"])
+        for key in ["bf16_fma_ms"] + [f"{v}_bf16_fma_ms" for v in ALIGN]:
+            row.setdefault(key, row[key.replace("_fma", "")])
         print(f"zwin_conv {name} x{count}: B={b} N={n} M={row['M']} "
               f"taps={row['active_taps']} bf16 {row['route']} {row['bf16_ms']:.4f} ms "
               f"(fma {row['bf16_fma_ms']:.4f}, plain {row['bf16_plain_ms']:.3f}, "
@@ -305,12 +368,15 @@ def kernel_phase(layers, dev):
         for variant in ALIGN:
             v = {k[len(variant) + 1:]: x for k, x in row.items()
                  if k.startswith(variant + "_")}
-            print(f"zwin_align_{variant} {name}: bf16 {v['bf16_ms']:.4f} ms (plain "
-                  f"{v['bf16_plain_ms']:.3f}, bound {v['bf16_bound_ms']:.4f} "
-                  f"{v['bf16_bound_by']}, err {v['bf16_max_abs_err']:.3g}) | f32 "
-                  f"{v['f32_ms']:.4f} ms (plain {v['f32_plain_ms']:.3f}, err "
-                  f"{v['f32_max_abs_err']:.3g}); equal to zwin_conv within tolerance",
-                  flush=True)
+            print(f"zwin_align_{variant} {name} x{count}: rows={v['bf16_rows']} bf16 "
+                  f"{row['route']} {v['bf16_ms']:.4f} ms (fma {v['bf16_fma_ms']:.4f}, "
+                  f"plain {v['bf16_plain_ms']:.3f}, bound {v['bf16_bound_ms']:.4f} "
+                  f"{v['bf16_bound_by']} [every window read: "
+                  f"{v['bf16_bound_all_ms']:.4f}], x{v['bf16_ms'] / v['bf16_bound_ms']:.1f} "
+                  f"of the bound, err {v['bf16_max_abs_err']:.3g}, broken copy err "
+                  f"{v['bf16_broken_err']:.3g}) | f32 fma {v['f32_ms']:.4f} ms (plain "
+                  f"{v['f32_plain_ms']:.3f}, err {v['f32_max_abs_err']:.3g}); equal to "
+                  f"zwin_conv within tolerance", flush=True)
         shapes.append(row)
     return shapes
 
@@ -1098,15 +1164,25 @@ def main():
          "replaces": f"vision3d_tpu/ops/pallas/zwin_conv.py:{line}",
          "launches": align_launches[f"zwin_align_{v}"],
          "max_abs_err": max(r[f"{v}_bf16_max_abs_err"] for r in shapes),
+         "launches_by_route": {r: align_launches[f"zwin_align_{v}.{r}"]
+                               for r in kernels.ROUTES[f"zwin_align_{v}"]},
          "ms": per(shapes, f"{v}_bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, f"{v}_bf16_plain_ms", "launches_per_forward"),
+         # the masks, the rows they select and the weight read once
          "bound_ms": per(shapes, f"{v}_bf16_bound_ms", "launches_per_forward"),
          "bound_by": ("bytes" if all(r[f"{v}_bf16_bound_by"] == "bytes" for r in shapes)
                       else "operations"),
          # no single PyTorch call aligns gathered windows by masks and multiplies
          "library_ms": None,
+         # every launch on the float32-FMA route (the design before the mma route)
+         "ms_fma_route_only": per(shapes, f"{v}_bf16_fma_ms", "launches_per_forward"),
+         # every gathered window read once (the bound before the least-bytes one)
+         "bound_ms_every_window": per(shapes, f"{v}_bf16_bound_all_ms",
+                                      "launches_per_forward"),
          "shapes": brief(shapes, "launches_per_forward",
-                         tuple(f"{v}_{t}" for t in times))}
+                         ("route",) + tuple(f"{v}_{t}" for t in
+                                            ("bf16_rows", "bf16_fma_ms",
+                                             "bf16_bound_all_ms") + times))}
         for v, line in (("v1", 55), ("v3", 238))
     ]
     print(smi)

@@ -597,3 +597,136 @@ def test_zwin_align_kernels_reject_bad_input(cuda_device):
         tzw.zwin_align_gemm_v3(g_km, m3.cpu(), w)
     with pytest.raises(ValueError):
         tzw.zwin_align_gemm_v1(g_km.transpose(1, 2).contiguous().transpose(1, 2), m1, w)
+
+
+def _za_case(c, cout, seed, dev, dtype=torch.bfloat16, n=300, m=1003):
+    """Windows and both mask layouts of a random rulebook (starts reach N)
+    in ``dtype``; B*M = 2006 is no multiple of the 64-site tile, and the
+    tile of sites 960-1023 spans the two frames."""
+    feats, start, pattern, w = _case(c, seed, dev, n=n, m=m, cout=cout)
+    masks = {"v1": tzw.pair_masks(pattern, m, dtype),
+             "v3": tzw.shift_masks(pattern, m, dtype)}
+    return tzw.gather_windows_km(feats, start, dtype), masks, w
+
+
+ALIGN = {"v1": (tzw.zwin_align_gemm_v1, tzw.zwin_align_gemm_v1_plain),
+         "v3": (tzw.zwin_align_gemm_v3, tzw.zwin_align_gemm_v3_plain)}
+
+
+def _za_counts(variant):
+    name = f"zwin_align_{variant}"
+    return [tzw.LAUNCHES[k] for k in (name, f"{name}.fma", f"{name}.mma")]
+
+
+def _za_check(variant, g_km, masks, w, route=None, tol=1e-5):
+    """One launch against the plain version, ``tol`` of the output scale,
+    counted once in all and once on its route."""
+    fn, plain = ALIGN[variant]
+    route_used = route or route_of(g_km.dtype, g_km.shape[3] // 3, w.shape[1])
+    before = _za_counts(variant)
+    got = fn(g_km, masks, w, route=route)
+    torch.cuda.synchronize()
+    after = _za_counts(variant)
+    assert after[0] == before[0] + 1
+    assert after[1:] == [before[1] + (route_used == "fma"), before[2] + (route_used == "mma")]
+    ref = plain(g_km, masks, w)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+@pytest.mark.parametrize("cout", [16, 32, 64])
+@pytest.mark.parametrize("c", [16, 32])
+def test_zwin_align_mma_route_matches_plain(c, cout, variant, cuda_device):
+    """The tensor-core route (bf16; the tile's rulebook built from the
+    masks) at every Cout the kernels take: exact products summed in f32,
+    1e-5 of the output scale, counted on "mma"."""
+    assert route_of(torch.bfloat16, c, cout) == "mma"
+    g_km, masks, w = _za_case(c, cout, c + cout, cuda_device)
+    _za_check(variant, g_km, masks[variant], w)
+
+
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+def test_zwin_align_mma_sparse_tiles(variant, cuda_device):
+    """Sites 128-255 of frame 0 (two whole tiles) have no mask set and come
+    out exactly zero; site 300 has one candidate only; in frame 1 every
+    window starts at N - 1 with all three bits set, so two of its rows are
+    the zero rows past N."""
+    n, m = 200, 410
+    feats, start, pattern, w = _case(32, 7, cuda_device, n=n, m=m, cout=32)
+    st = start.reshape(2, m, 9).clone()
+    pt = pattern.reshape(2, m, 9).clone()
+    pt[0, 128:256] = 0
+    pt[0, 300] = 0
+    pt[0, 300, 4], st[0, 300, 4] = 0b100, 17
+    st[1] = n - 1
+    pt[1] = 0b111
+    st, pt = st.reshape(2, -1), pt.reshape(2, -1)
+    g_km = tzw.gather_windows_km(feats, st, torch.bfloat16)
+    make = tzw.pair_masks if variant == "v1" else tzw.shift_masks
+    got = _za_check(variant, g_km, make(pt, m, torch.bfloat16), w)
+    assert not got[0, 128:256].any()
+    assert got[0, 300].any()
+
+
+def _extra_masks(variant, masks, kind):
+    """doubled: tap dz = 1 of every window also takes candidates 0 and 1;
+    tripled: every candidate j <= dz goes to every tap dz."""
+    out = masks.clone()
+    for dz, j in ([(1, 0), (1, 1)] if kind == "doubled" else tzw.PAIRS):
+        if variant == "v1":
+            out[..., tzw.PAIRS.index((dz, j))] = 1
+        else:
+            out.view(3, *out.shape[1:3], 9, 3)[dz - j, ..., j] = 1
+    return out
+
+
+@pytest.mark.parametrize("kind", ["doubled", "tripled"])
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+def test_zwin_align_doubled_and_tripled_masks(variant, kind, cuda_device):
+    """Masks that route two or three candidates to one (site, k2, dz): the
+    tensor-core route runs the tile again on them and adds, against the
+    plain version to 2e-2 of the scale in bf16 (v1's plain version rounds
+    a tap's summed candidates to bf16 first); the FMA route in float32 to
+    1e-5."""
+    for dtype, route, tol in ((torch.bfloat16, None, 2e-2), (torch.float32, None, 1e-5),
+                              (torch.bfloat16, "fma", 2e-2)):
+        g_km, masks, w = _za_case(16, 32, 17, cuda_device, dtype)
+        _za_check(variant, g_km, _extra_masks(variant, masks[variant], kind), w,
+                  route=route, tol=tol)
+
+
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+def test_zwin_align_mma_unaligned_bf16_view(variant, cuda_device):
+    """A bf16 ``g_km`` view off 16-byte alignment is copied by the wrapper,
+    not read askew: bit for bit the aligned input's result."""
+    g_km, masks, w = _za_case(32, 32, 13, cuda_device)
+    odd = torch.cat([g_km.new_zeros((1,)), g_km.reshape(-1)])[1:].reshape(g_km.shape)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    fn = ALIGN[variant][0]
+    ref = fn(g_km, masks[variant], w)
+    got = fn(odd, masks[variant], w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["v1", "v3"])
+def test_zwin_align_fma_route_forced_and_float32(variant, cuda_device):
+    """The FMA kernel forced in bf16 agrees with the plain version and is
+    counted on "fma"; float32 takes "fma" by default; "mma" refuses float32
+    and C = 4, launching nothing."""
+    g_km, masks, w = _za_case(32, 64, 21, cuda_device)
+    _za_check(variant, g_km, masks[variant], w, route="fma")
+    g32, m32, _ = _za_case(32, 64, 21, cuda_device, torch.float32)
+    _za_check(variant, g32, m32[variant], w)
+    g4, m4, w4 = _za_case(4, 16, 22, cuda_device)
+    fn = ALIGN[variant][0]
+    before = _za_counts(variant)
+    with pytest.raises(ValueError):
+        fn(g32, m32[variant], w, route="mma")
+    with pytest.raises(ValueError):
+        fn(g4, m4[variant], w4, route="mma")
+    with pytest.raises(ValueError):
+        fn(g_km, masks[variant], w, route="wgmma")
+    assert _za_counts(variant) == before

@@ -10,15 +10,18 @@ medians of
     allow ("mma": tensor cores, bf16 with C % 16 == 0; "fma": the
     float32-FMA design);
   * v1 and v3: ``zwin_align_gemm_v1`` / ``_v3`` (csrc/zwin_align_gemm.cu)
-    on already gathered windows: the kernel alone, and the whole
-    ``conv_zwin_apply_v1`` / ``_v3`` with its window gather and mask build
-    in plain PyTorch;
+    on already gathered windows: the kernel alone on each route the widths
+    allow (the same rule), and the whole ``conv_zwin_apply_v1`` / ``_v3``
+    with its window gather and mask build in plain PyTorch;
   * the plain version ``ops.sparse.conv_zwin_apply``.
 Every kernel's output is held against the plain version's (1e-4 of the
 scale in float32, 2e-2 in bf16) before it is timed. Printed beside the
-bound (each input read once, the output written once, 2*C*Cout flops per
-active tap, over the H100's peaks); ends with the per-forward sums (each
-layer times its launches).
+bound, over the H100's peaks: for v2 and the plain version each input read
+once, the output written once, 2*C*Cout flops per active tap; for v1 and
+v3 ``chip_smoke.align_bound_ms``, the masks, the rows they select and the
+weight read once (every gathered window read once beside it). Ends with
+the per-forward sums (each layer times its launches; "as routed" sums each
+layer on the route the wrapper picks).
 
     python tools/microbench_torch_zwin.py [--iters 10] [--dtype bfloat16]
 """
@@ -33,7 +36,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import cuda_ms, path_layers, zwin_bound_ms  # noqa: E402
+from chip_smoke import align_bound_ms, cuda_ms, path_layers, zwin_bound_ms  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
 from vision3d_tpu_torch.ops import sparse as sp  # noqa: E402
 from vision3d_tpu_torch.ops import zwin_conv as zw  # noqa: E402
@@ -71,20 +74,22 @@ def main(argv=None):
         scale = float(ref.abs().max())
         bound, by, taps = zwin_bound_ms(b, n, c, cout, start, pattern, dtype)
         g_km = zw.gather_windows_km(feats, start, dtype)
-        m1, m3 = zw.pair_masks(pattern, m, dtype), zw.shift_masks(pattern, m, dtype)
-        runs = {
-            f"v2 zwin_conv {r}":
+        masks = {"v1": zw.pair_masks(pattern, m, dtype), "v3": zw.shift_masks(pattern, m, dtype)}
+        routed = route_of(dtype, c, cout)
+        routes = dict.fromkeys((routed, "fma"))
+        runs = {f"v2 zwin_conv {r}":
                 (lambda r=r: zw.zwin_conv(feats, start, pattern, w, K3, dtype, route=r))
-            for r in dict.fromkeys((route_of(dtype, c, cout), "fma"))}
-        runs.update({
-            "v1 kernel": lambda: zw.zwin_align_gemm_v1(g_km, m1, w),
-            "v1 gather+masks+kernel":
-                lambda: zw.conv_zwin_apply_v1(feats, start, pattern, w, K3, dtype),
-            "v3 kernel": lambda: zw.zwin_align_gemm_v3(g_km, m3, w),
-            "v3 gather+masks+kernel":
-                lambda: zw.conv_zwin_apply_v3(feats, start, pattern, w, K3, dtype),
-            "plain": lambda: sp.conv_zwin_apply(feats, start, pattern, w, K3, dtype),
-        })
+                for r in routes}
+        bounds = {}
+        for v, fn, apply in (("v1", zw.zwin_align_gemm_v1, zw.conv_zwin_apply_v1),
+                             ("v3", zw.zwin_align_gemm_v3, zw.conv_zwin_apply_v3)):
+            runs.update({f"{v} kernel {r}":
+                         (lambda fn=fn, v=v, r=r: fn(g_km, masks[v], w, route=r))
+                         for r in routes})
+            runs[f"{v} gather+masks+kernel"] = (
+                lambda apply=apply: apply(feats, start, pattern, w, K3, dtype))
+            bounds[v] = align_bound_ms(v, g_km, masks[v], cout, dtype)
+        runs["plain"] = lambda: sp.conv_zwin_apply(feats, start, pattern, w, K3, dtype)
         for label, fn in runs.items():
             got = fn()
             err = float((got - ref).abs().max())
@@ -94,11 +99,18 @@ def main(argv=None):
                 failed.append(f"{name} {label}")
             ms = cuda_ms(fn, reps=args.iters)
             totals[label] = totals.get(label, 0.0) + count * ms
+            if label.endswith(f" {routed}"):   # the launches as the wrapper routes them
+                key = f"{label[:-len(routed)]}as routed"
+                totals[key] = totals.get(key, 0.0) + count * ms
+            lb, lby, every, _ = bounds.get(label[:2], (bound, by, None, None))
             print(f"{name:16s} x{count} B={b} N={n} M={m} taps={taps} {label:24s} "
-                  f"{ms:8.4f} ms bound {bound:.4f} ({by}) x{ms / bound:7.1f} "
-                  f"err {err:.3g} scale {scale:.3g}{'' if ok else ' DISAGREES'}",
-                  flush=True)
-        totals["bound"] = totals.get("bound", 0.0) + count * bound
+                  f"{ms:8.4f} ms bound {lb:.4f} ({lby}"
+                  f"{'' if every is None else f'; every window {every:.4f}'}) "
+                  f"x{ms / lb:7.1f} err {err:.3g} scale {scale:.3g}"
+                  f"{'' if ok else ' DISAGREES'}", flush=True)
+        for key, ms in (("bound", bound), *((f"{v} bound", bounds[v][0]) for v in bounds),
+                        *((f"{v} bound every window", bounds[v][2]) for v in bounds)):
+            totals[key] = totals.get(key, 0.0) + count * ms
         del ref
     for label, ms in totals.items():
         print(f"per forward (6 launches) {label:24s} {ms:8.4f} ms")

@@ -1,7 +1,7 @@
 // Tiles of gathered rows on Hopper's tensor cores (sm_90a): the part that
 // the rulebook gather-GEMM (gather_gemm.cu), the z-window conv
-// (zwin_conv.cu) and the column conv (column_conv.cu) share on their "mma"
-// routes.
+// (zwin_conv.cu), the column conv (column_conv.cu) and the z-window kernels
+// on gathered windows (zwin_align_gemm.cu) share on their "mma" routes.
 //
 // A block of 4 warps owns a tile of T = 64 consecutive flattened sites
 // (b*M + m) and all Cout columns of out (B*M, Cout) f32:
@@ -29,6 +29,9 @@
 //   epilogue writes the f32 rows below B*M, or, with ROW_MAP, site i's sum
 //   to row orow[i] of out (a shared-memory map the caller writes beside
 //   grow; -1: no site), for a caller whose sites are not consecutive rows.
+//   With ACCUM it adds the sums to what out holds, for a caller that runs
+//   a second rulebook over the same tile (each thread reads back only the
+//   elements it wrote itself).
 //
 // Needs C % 16 == 0, feats and W 16-byte aligned, B*N and B*M + 64 below
 // INT_MAX (the launchers check the sizes, the wrappers the alignment).
@@ -160,8 +163,8 @@ __device__ __forceinline__ TileSmem carve_smem(void* raw, int K, int C) {
 // The tile's product, once sm.grow and sm.hit (and orow with ROW_MAP) are
 // written and a barrier has passed. out is (total, COUT) row-major; rows >=
 // total are not written. With ROW_MAP, site i goes to row orow[i] and
-// total and tile0 are not read.
-template <int COUT, bool ROW_MAP = false>
+// total and tile0 are not read. With ACCUM the sums are added to out.
+template <int COUT, bool ROW_MAP = false, bool ACCUM = false>
 __device__ __forceinline__ void tile_mma(const bf16* __restrict__ feats,
                                          const bf16* __restrict__ weight,
                                          float* __restrict__ out, int total,
@@ -287,12 +290,18 @@ __device__ __forceinline__ void tile_mma(const bf16* __restrict__ feats,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int n = wn0 + nt * 8 + (lane & 3) * 2;
-      if (on0)
-        *reinterpret_cast<float2*>(out + (long long)r0 * COUT + n) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (on1)
-        *reinterpret_cast<float2*>(out + (long long)r1 * COUT + n) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      if (on0) {
+        float2* p = reinterpret_cast<float2*>(out + (long long)r0 * COUT + n);
+        float2 v = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        if constexpr (ACCUM) v = make_float2(v.x + p->x, v.y + p->y);
+        *p = v;
+      }
+      if (on1) {
+        float2* p = reinterpret_cast<float2*>(out + (long long)r1 * COUT + n);
+        float2 v = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        if constexpr (ACCUM) v = make_float2(v.x + p->x, v.y + p->y);
+        *p = v;
+      }
     }
   }
 }

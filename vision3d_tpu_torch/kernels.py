@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # route names in the order of the entry point's route argument
 ROUTES = {"gather_gemm": ("fma", "mma"), "zwin_conv": ("fma", "mma"),
-          "column_conv": ("fma", "mma")}
+          "column_conv": ("fma", "mma"), "zwin_align_v1": ("fma", "mma"),
+          "zwin_align_v3": ("fma", "mma")}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}.{r}": 0 for name, routes in ROUTES.items() for r in routes})

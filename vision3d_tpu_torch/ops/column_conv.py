@@ -32,7 +32,7 @@ import torch
 
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import column_sparse as csp
-from vision3d_tpu_torch.ops.gather_gemm import aligned16, route_of
+from vision3d_tpu_torch.ops.gather_gemm import aligned16, pick_route
 
 LAUNCHES = kernels.LAUNCHES
 ROUTES = kernels.ROUTES["column_conv"]
@@ -105,11 +105,7 @@ def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
                          f"D_out {d_out}")
     if not (col_feats.is_contiguous() and rb_idx.is_contiguous()):
         raise ValueError("column_conv: col_feats and rb_idx must be contiguous")
-    chosen = route_of(compute_dtype, c, cout)
-    route = chosen if route is None else route
-    if route not in ROUTES or (route == "mma" and chosen != "mma"):
-        raise ValueError(f"column_conv: route {route!r} cannot take "
-                         f"{compute_dtype} {c}x{cout}")
+    route = pick_route("column_conv", compute_dtype, c, cout, route)
     m = rb_idx.shape[1] // k2
     if route == "mma" and (b * n * d >= _INT_MAX or b * m * d_out + 64 >= _INT_MAX):
         raise ValueError(f"column_conv: B*N*D {b * n * d} or B*M*D_out "

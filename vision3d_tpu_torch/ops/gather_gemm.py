@@ -46,6 +46,17 @@ def route_of(compute_dtype, c, cout):
     return "fma"
 
 
+def pick_route(name, compute_dtype, c, cout, route=None):
+    """The route a call of kernel ``name`` takes: ``route`` where the
+    caller forces one, else ``route_of``'s. Raises for a route the kernel
+    does not have, and for "mma" on widths or a dtype it cannot take."""
+    chosen = route_of(compute_dtype, c, cout)
+    route = chosen if route is None else route
+    if route not in kernels.ROUTES[name] or (route == "mma" and chosen != "mma"):
+        raise ValueError(f"{name}: route {route!r} cannot take {compute_dtype} {c}x{cout}")
+    return route
+
+
 def aligned16(t):
     """``t`` itself if its data starts on a 16-byte boundary (what the mma
     route's cp.async needs), else a fresh copy."""
@@ -82,11 +93,7 @@ def gather_gemm(feats, rb, weight, compute_dtype=torch.float32, route=None):
         raise ValueError(f"gather_gemm: Cout {cout} not in {_COUTS}")
     if not (feats.is_contiguous() and rb.is_contiguous()):
         raise ValueError("gather_gemm: feats and rb must be contiguous")
-    chosen = route_of(compute_dtype, c, cout)
-    route = chosen if route is None else route
-    if route not in ROUTES or (route == "mma" and chosen != "mma"):
-        raise ValueError(f"gather_gemm: route {route!r} cannot take "
-                         f"{compute_dtype} {c}x{cout}")
+    route = pick_route("gather_gemm", compute_dtype, c, cout, route)
     m = rb.shape[1] // k
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()

@@ -21,15 +21,19 @@ k2-major windows plus tap masks, v1 as ``(dz, j)`` pairs, v3 as shift
 masks. ``conv_zwin_apply_v1`` / ``_v3`` gather the windows and build the
 masks in plain PyTorch (XLA code in the JAX package) and then call them,
 with the contract of ``conv_zwin_apply_pallas`` / ``conv_zwin_apply_pallas3``.
+They take the same two routes by the same rule: on "mma" the windows are
+one flat table of C-wide rows and each tile builds its 27-tap rulebook
+from the masks in shared memory (a tile whose masks route a second or
+third candidate to one tap runs again on those, adding to its output).
 No model path runs them; ``tools/microbench_torch_zwin.py`` times all
 three variants on one set of rulebooks.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (``ops.sparse.conv_zwin_apply``, ``zwin_align_gemm_v1_plain``,
 ``zwin_align_gemm_v3_plain``); on a CUDA tensor it launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches under ``zwin_conv`` (and
-``zwin_conv.mma`` / ``zwin_conv.fma`` per route), ``zwin_align_v1`` and
-``zwin_align_v3``.
+raises. ``LAUNCHES`` counts kernel launches under ``zwin_conv``,
+``zwin_align_v1`` and ``zwin_align_v3``, and per route under
+``<kernel>.mma`` / ``<kernel>.fma``.
 """
 
 import ctypes
@@ -38,7 +42,7 @@ import torch
 
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import sparse as sp
-from vision3d_tpu_torch.ops.gather_gemm import aligned16, route_of
+from vision3d_tpu_torch.ops.gather_gemm import aligned16, pick_route
 
 LAUNCHES = kernels.LAUNCHES
 ROUTES = kernels.ROUTES["zwin_conv"]
@@ -83,11 +87,7 @@ def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
     if not (feats.is_contiguous() and start.is_contiguous()
             and pattern.is_contiguous()):
         raise ValueError("zwin_conv: feats, start and pattern must be contiguous")
-    chosen = route_of(compute_dtype, c, cout)
-    route = chosen if route is None else route
-    if route not in ROUTES or (route == "mma" and chosen != "mma"):
-        raise ValueError(f"zwin_conv: route {route!r} cannot take "
-                         f"{compute_dtype} {c}x{cout}")
+    route = pick_route("zwin_conv", compute_dtype, c, cout, route)
     m = start.shape[1] // 9
     x = feats.to(compute_dtype)
     w = weight.to(compute_dtype).contiguous()
@@ -113,7 +113,7 @@ def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
 _KZ, _K2 = 3, 9
 PAIRS = [(dz, j) for dz in range(_KZ) for j in range(dz + 1)]
 _ALIGN_COUTS = (16, 32, 64)
-_ALIGN_ARGTYPES = [_VP] * 4 + [_CI] * 5 + [_VP]
+_ALIGN_ARGTYPES = [_VP] * 4 + [_CI] * 6 + [_VP]
 
 
 def gather_windows_km(feats, start, compute_dtype):
@@ -203,7 +203,7 @@ def zwin_align_gemm_v3_plain(g_km, msk, weight):
     return out.reshape(b, m, -1)
 
 
-def _zwin_align(name, plain, g_km, masks, weight, mask_shape):
+def _zwin_align(name, plain, g_km, masks, weight, mask_shape, route):
     if g_km.device.type == "cpu":
         return plain(g_km, masks, weight)
     if g_km.device.type != "cuda":
@@ -228,7 +228,10 @@ def _zwin_align(name, plain, g_km, masks, weight, mask_shape):
         raise ValueError(f"{name}: Cout {cout} not in {_ALIGN_COUTS}")
     if not (g_km.is_contiguous() and masks.is_contiguous()):
         raise ValueError(f"{name}: g_km and masks must be contiguous")
+    route = pick_route(name, g_km.dtype, c, cout, route)
     w = weight.to(g_km.dtype).contiguous()
+    if route == "mma":
+        g_km, w = aligned16(g_km), aligned16(w)
     out = torch.empty((b, m, cout), dtype=torch.float32, device=g_km.device)
     if b == 0 or m == 0:
         return out
@@ -236,23 +239,25 @@ def _zwin_align(name, plain, g_km, masks, weight, mask_shape):
         kernels.launch(
             name, _ALIGN_ARGTYPES,
             g_km.data_ptr(), masks.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, m, c, cout, _DTYPES[g_km.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            b, m, c, cout, _DTYPES[g_km.dtype], kernels.ROUTES[name].index(route),
+            torch.cuda.current_stream().cuda_stream, route=route)
     return out
 
 
-def zwin_align_gemm_v1(g_km, masks, weight):
+def zwin_align_gemm_v1(g_km, masks, weight, route=None):
     """g_km (B, 9, M, 3*C) gathered windows, k2-major, float32 or
     bfloat16; masks (B, 9, M, 6) of the same dtype, (dz, j) pairs; weight
-    (27*C, Cout), rounded to that dtype. Returns (B, M, Cout) f32."""
+    (27*C, Cout), rounded to that dtype. Returns (B, M, Cout) f32.
+    ``route`` (card only) forces a kernel where the comparisons need both;
+    by default ``route_of`` picks it."""
     return _zwin_align("zwin_align_v1", zwin_align_gemm_v1_plain, g_km, masks,
-                       weight, lambda b, m: (b, _K2, m, len(PAIRS)))
+                       weight, lambda b, m: (b, _K2, m, len(PAIRS)), route)
 
 
-def zwin_align_gemm_v3(g_km, msk, weight):
+def zwin_align_gemm_v3(g_km, msk, weight, route=None):
     """As ``zwin_align_gemm_v1`` with shift masks msk (3, B, M, 27)."""
     return _zwin_align("zwin_align_v3", zwin_align_gemm_v3_plain, g_km, msk,
-                       weight, lambda b, m: (_KZ, b, m, _K2 * _KZ))
+                       weight, lambda b, m: (_KZ, b, m, _K2 * _KZ), route)
 
 
 def _check_zwin_args(name, feats, start, pattern, kernel, compute_dtype):
