@@ -2,8 +2,9 @@
 against its plain PyTorch version at the shapes SECOND gives it, runs
 full-geometry 3-class SECOND inference (configs/second/all_classes.yaml,
 trained weights, bf16, batch 8 x 18,000 points) end to end on the voxel
-and on the column backend, and takes training steps of the same model
-from a fresh seeded init.
+and on the column backend, takes training steps of the same model from a
+fresh seeded init, and trains, evaluates and draws through the
+command-line entry points on a synthetic KITTI-format set.
 
     python3 chip_smoke.py
 
@@ -56,7 +57,19 @@ Phases, each printing lines before the last:
   6. a small-geometry training reference: one loss.backward() on the card
      (kernels; float32, so every gather_gemm launch on the FMA route) and on
      the CPU (plain versions), float32 with TF32 off: loss to 1e-5
-     relative, every gradient to 1e-4 of its tensor's max.
+     relative, every gradient to 1e-4 of its tensor's max;
+  7. the command-line entry points at full geometry in the yaml's float32
+     (every launch on the FMA route), on a synthetic KITTI-format set from
+     tools/make_synthetic_kitti.py (16 train, 48 val frames): train_cli,
+     batch 8 with 2 loader processes, one epoch from a fresh init and one
+     more by --resume (launches per step, finite losses, checkpoints,
+     frames/s and the share spent waiting for the loader); eval_cli on the
+     48 val frames on that checkpoint (finite AP) and on the trained
+     weights with TF32 off, whose AP@R40 table must be within 1.0 AP of
+     the JAX package's on the same frames and weights in all 9 entries
+     (tests/goldens/torch_eval_ap_jax_t16v48.json), with launches per
+     batch and frames/s; inference_cli's BEV PNG of one frame from the
+     checkpoint.
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -64,9 +77,12 @@ power limit from nvidia-smi.
 
 import contextlib
 import gc
+import hashlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +111,10 @@ from vision3d_tpu_torch.training.train import create_train_state, make_train_ste
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "second" / "all_classes.yaml"
 WEIGHTS = ROOT / "vision3d_tpu_torch" / "weights" / "second_all_classes_epoch11.npz"
+# the JAX package's AP table of WEIGHTS' checkpoint on the synthetic set of
+# phase 7 (the file holds the commands that made it)
+GOLDEN = ROOT / "tests" / "goldens" / "torch_eval_ap_jax_t16v48.json"
+AP_GATE = 1.0     # AP points, every class x difficulty
 BATCH, POINTS = 8, 18000
 STEPS_PER_EPOCH = 928         # 3712 KITTI train frames / 4, as bench_train.py
 TRAIN_WARMUP, TRAIN_TIMED = 3, 6
@@ -988,6 +1008,122 @@ def training_reference_phase(dev):
                 relu_gates=n_gates, gates_that_differed=sum(differ), counters=cdiag)
 
 
+def launches_at(name, rows, count, dtype, times):
+    """The launches of kernel ``name`` that ``times`` runs of the ``rows``
+    shapes give at ``dtype``, in all and per route (``route_of``'s rule)."""
+    want = {f"{name}.{r}": 0 for r in kernels.ROUTES[name]}
+    for r in rows:
+        want[f"{name}.{route_of(dtype, r['C'], r['Cout'])}"] += r[count] * times
+    want[name] = sum(r[count] for r in rows) * times
+    return want
+
+
+def labels_sha256(root, inds):
+    digest = hashlib.sha256()
+    for i in inds:
+        digest.update((root / "training" / "label_2" / f"{i:06d}.txt").read_bytes())
+    return digest.hexdigest()
+
+
+def counted(fn, want):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; every kernel must have launched as ``want`` says (absent: 0).
+    Returns (fn's result, the launches)."""
+    zw.reset_launches()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(zw.LAUNCHES)
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{name} launched {n} times, not "
+                                      f"{want.get(name, 0)}: all {launches}")
+    return out, launches
+
+
+def cli_phase(cfg, shapes, gg_rows, gr_rows):
+    """Phase 7: the command-line entry points on a synthetic KITTI-format
+    set written by tools/make_synthetic_kitti.py (GOLDEN's command):
+    train_cli for one epoch from a fresh init and one more by --resume,
+    eval_cli on that checkpoint and on the trained weights (float32, TF32
+    off; AP held against the JAX package's table on the same frames), and
+    inference_cli's BEV image of one frame from the checkpoint."""
+    from vision3d_tpu_torch import eval_cli, inference_cli, train_cli
+
+    golden = json.loads(GOLDEN.read_text())
+    dtype = getattr(torch, cfg.compute_dtype)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_synthetic_kitti.py"),
+                        "--out", str(tmp), *golden["generator_args"]], check=True,
+                       capture_output=True)
+        val = np.loadtxt(tmp / "splitfiles" / "val.txt", dtype=np.int64).tolist()
+        check(labels_sha256(tmp, val) == golden["val_labels_sha256"],
+              "the synthetic set's val labels differ from those of the golden")
+        data = ["--config", str(CONFIG), "--data-root", str(tmp / "training"),
+                "--split-dir", str(tmp / "splitfiles"), "--cache-dir", str(tmp / "cache")]
+        train = data + ["--batch-size", str(BATCH), "--workers", "2",
+                        "--ckpt-dir", str(tmp / "ckpts"),
+                        "--metrics-jsonl", str(tmp / "metrics.jsonl")]
+
+        steps = 16 // BATCH
+        want_step = {"gather_rows": sum(r["launches_per_step"] for r in gr_rows) * steps,
+                     **launches_at("gather_gemm", gg_rows, "launches_per_step", dtype, steps)}
+        first, out["train_launches"] = counted(
+            lambda: train_cli.main(train + ["--epochs", "1"]), want_step)
+        resumed, _ = counted(
+            lambda: train_cli.main(train + ["--epochs", "2", "--resume"]), want_step)
+        check([r["epoch"] for r in first] == [0] and [r["epoch"] for r in resumed] == [1],
+              f"epochs run: {[r['epoch'] for r in first]}, then "
+              f"{[r['epoch'] for r in resumed]} after --resume")
+        for rec in first + resumed:
+            check(rec["steps"] == steps and all(np.isfinite(rec["losses"])),
+                  f"train_cli epoch {rec['epoch']}: {rec}")
+            check(rec["checkpoint"] and Path(rec["checkpoint"]).is_file(),
+                  f"no checkpoint after epoch {rec['epoch']}")
+        ckpt = resumed[0]["checkpoint"]
+        check(torch.load(ckpt, weights_only=True)["step"] == 2 * steps,
+              "the resumed run did not continue the step count")
+        out["train"] = [{k: rec[k] for k in ("epoch", "seconds", "frames_per_s",
+                                             "host_wait_s", "losses")}
+                        for rec in first + resumed]
+
+        batches = -(-len(val) // BATCH)
+        want_eval = launches_at("zwin_conv", shapes, "launches_per_forward", dtype, batches)
+        (table_ckpt, timing_ckpt), out["eval_launches"] = counted(
+            lambda: eval_cli.main(data + ["--ckpt", ckpt, "--out-json",
+                                          str(tmp / "ap_ckpt.json")]), want_eval)
+        check(all(np.isfinite(v) for row in table_ckpt.values() for v in row.values()),
+              f"eval_cli on the checkpoint: {table_ckpt}")
+        with full_float32():
+            (table, timing), _ = counted(
+                lambda: eval_cli.main(data + ["--weights", str(WEIGHTS)]), want_eval)
+        check(timing["frames"] == len(val), f"eval_cli evaluated {timing['frames']} frames")
+        gaps = {f"{c}/{k}": abs(table[int(c)][k] - v)
+                for c, row in golden["table"].items() for k, v in row.items()}
+        check(len(gaps) == 9 and max(gaps.values()) <= AP_GATE,
+              f"AP differs from the JAX golden by more than {AP_GATE}: port {table}, "
+              f"JAX {golden['table']}")
+        out.update(table_ckpt=table_ckpt, eval_ckpt=timing_ckpt, table=table,
+                   eval=timing, ap_gaps=gaps)
+
+        png = tmp / "bev.png"
+        want_one = launches_at("zwin_conv", shapes, "launches_per_forward", dtype, 1)
+        printed = io.StringIO()     # one line per detection of a 4-step model
+        with contextlib.redirect_stdout(printed):
+            dets, out["inference_launches"] = counted(
+                lambda: inference_cli.main(
+                    ["--config", str(CONFIG), "--ckpt", ckpt, "--velo",
+                     str(tmp / "training" / "velodyne" / f"{val[0]:06d}.bin"),
+                     "--out", str(png)]), want_one)
+        check(printed.getvalue().count("class=") == len(dets["boxes"]),
+              "inference_cli printed another number of detections than it found")
+        check(png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "no PNG written")
+        out["inference_detections"] = len(dets["boxes"])
+        out["bev_png_bytes"] = png.stat().st_size
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1073,6 +1209,33 @@ def main():
         tref = training_reference_phase(dev)
     print(f"training reference check (card vs CPU, f32, small geometry): {tref}",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = cli_phase(Config.from_yaml(str(CONFIG)), shapes, gg_rows, gr_rows)
+    steps = len(cli["train"][0]["losses"])
+    per_step = {k: v // steps for k, v in cli["train_launches"].items()}
+    for rec in cli["train"]:
+        print(f"train_cli epoch {rec['epoch']}: {steps} steps of {BATCH} frames, "
+              f"{rec['seconds']:.2f} s, {rec['frames_per_s']:.2f} frames/s, host wait "
+              f"{rec['host_wait_s']:.2f} s ({rec['host_wait_s'] / rec['seconds']:.1%}), "
+              f"losses {[round(x, 4) for x in rec['losses']]}", flush=True)
+    print(f"train_cli launches per step: {per_step}", flush=True)
+    batches = -(-cli["eval"]["frames"] // BATCH)
+    per_batch = {k: v // batches for k, v in cli["eval_launches"].items()}
+    print(f"eval_cli launches per batch of {BATCH}: {per_batch}; inference_cli "
+          f"(one frame): {cli['inference_launches']}, {cli['inference_detections']} detections, "
+          f"BEV png {cli['bev_png_bytes']} bytes",
+          flush=True)
+    for tag, timing in (("checkpoint", cli["eval_ckpt"]), ("trained weights, TF32 off",
+                                                           cli["eval"])):
+        print(f"eval_cli on the {tag}: {timing['frames']} frames in "
+              f"{timing['seconds']:.2f} s ({timing['frames'] / timing['seconds']:.2f} "
+              f"frames/s)", flush=True)
+    print(f"eval_cli AP@R40 on the checkpoint: {cli['table_ckpt']}", flush=True)
+    print(f"eval_cli AP@R40, trained weights: {cli['table']}", flush=True)
+    print(f"JAX golden AP@R40: {json.loads(GOLDEN.read_text())['table']}; largest gap "
+          f"{max(cli['ap_gaps'].values()):.4f} ({max(cli['ap_gaps'], key=cli['ap_gaps'].get)})",
+          flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1096,6 +1259,9 @@ def main():
          "max_abs_err": max(r["bf16_max_abs_err"] for r in shapes),
          "launches_by_route": {r: e2e["launches"][f"zwin_conv.{r}"]
                                for r in kernels.ROUTES["zwin_conv"]},
+         # the command-line paths, at the yaml's compute dtype
+         "launches_eval_cli_per_batch": per_batch,
+         "launches_inference_cli": cli["inference_launches"],
          "ms": per(shapes, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(shapes, "bf16_bound_ms", "launches_per_forward"),
@@ -1113,6 +1279,8 @@ def main():
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gg_rows),
          "launches_by_route": {r: train["launches"][f"gather_gemm.{r}"]
                                for r in kernels.ROUTES["gather_gemm"]},
+         "launches_train_cli_per_step": {k: v for k, v in per_step.items()
+                                         if k.startswith("gather_gemm")},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies
@@ -1126,6 +1294,7 @@ def main():
          "replaces": "vision3d_tpu/ops/pallas/gather.py:34 and "
                      "vision3d_tpu/ops/pallas/dma_gather.py:29",
          "launches": train["launches"]["gather_rows"],
+         "launches_train_cli_per_step": per_step["gather_rows"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gr_rows),
          "ms": per(gr_rows, "bf16_ms"), "plain_ms": per(gr_rows, "bf16_plain_ms"),
          "bound_ms": per(gr_rows, "bf16_bound_ms"), "bound_by": bound_by(gr_rows),

@@ -39,7 +39,8 @@ GOLD = ROOT / "tests" / "goldens"
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port (and chip_smoke.py and the GPU
     tools tools/microbench_torch_*.py, tools/profile_torch_*.py) must load
-    no jax, flax, optax, orbax or vision3d_tpu module."""
+    no jax, flax, optax, orbax or vision3d_tpu module, and neither cv2, PIL
+    nor tensorboard, which the card's host lacks."""
     mods = sorted(
         "vision3d_tpu_torch." + ".".join(p.relative_to(ROOT / "vision3d_tpu_torch")
                                          .with_suffix("").parts)
@@ -54,7 +55,8 @@ def test_port_imports_nothing_of_jax():
         "    spec = importlib.util.spec_from_file_location(f'tool{i}', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vision3d_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vision3d_tpu', 'cv2', 'PIL', "
+        "'tensorboard', 'tensorflow'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -62,7 +64,10 @@ def test_port_imports_nothing_of_jax():
     assert len(mods) >= 25 and len(tools) >= 4
     for new in ("core.targets", "models.losses", "ops.gather_gemm", "ops.gather_rows",
                 "training.train", "training.checkpoint", "training.metrics",
-                "ops.column_sparse", "ops.column_conv"):
+                "ops.column_sparse", "ops.column_conv", "core.iou_host",
+                "core.preprocess", "data.kitti", "data.augment", "data.loader",
+                "eval.kitti_eval", "eval_cli", "train_cli", "inference_cli",
+                "utils.bev_drawer"):
         assert "vision3d_tpu_torch." + new in mods
 
 

@@ -125,3 +125,35 @@ def mean_vfe(features, occupancy):
     """Mean of the stored points per voxel; empty voxels give zeros."""
     denom = occupancy.clamp(min=1).to(features.dtype)[..., None]
     return features.sum(dim=-2) / denom
+
+
+def voxelize_np(points: np.ndarray, cfg: Config):
+    """Host voxelizer with the same first-come semantics, one cloud at a
+    time (``vision3d_tpu/core/voxelize.py:157``): (features (Nv, K, C),
+    coords (Nv, 3) ZYX int32, occupancy (Nv,) int32) of the real voxels
+    only."""
+    nx, ny, nz = grid_dims_xyz(cfg)
+    lo = np.asarray(cfg.grid_bounds[:3], dtype=points.dtype)
+    vs = np.asarray(cfg.voxel_size, dtype=points.dtype)
+    c = np.floor((points[:, :3] - lo) / vs).astype(np.int64)
+    ok = ((c >= 0) & (c < np.array([nx, ny, nz]))).all(axis=1)
+
+    N, K, C = cfg.max_voxels, cfg.max_occupancy, points.shape[1]
+    features = np.zeros((N, K, C), points.dtype)
+    coords = np.zeros((N, 3), np.int32)
+    occupancy = np.zeros((N,), np.int32)
+    table = {}
+    for i in np.flatnonzero(ok):
+        zyx = (int(c[i, 2]), int(c[i, 1]), int(c[i, 0]))
+        v = table.get(zyx)
+        if v is None:
+            if len(table) >= N:
+                continue
+            v = len(table)
+            table[zyx] = v
+            coords[v] = zyx
+        if occupancy[v] < K:
+            features[v, occupancy[v]] = points[i]
+            occupancy[v] += 1
+    n = len(table)
+    return features[:n], coords[:n], occupancy[:n]

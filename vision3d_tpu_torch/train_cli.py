@@ -1,0 +1,123 @@
+"""Training entry point of the PyTorch port, one card (counterpart of
+``vision3d_tpu/train_cli.py``).
+
+    python -m vision3d_tpu_torch.train_cli --config configs/second/all_classes.yaml \\
+        --data-root .../training --split-dir .../splitfiles --cache-dir .../cache
+
+Trains SECOND from KITTI-format data: ``KittiDatasetTrain`` (augmentation
+in ``--workers`` spawned processes) feeding ``make_train_step`` on the
+card, per-step learning-rate schedule, gradient clip, metrics every 10
+steps (stdout and ``--metrics-jsonl``), one line per epoch with frames/s
+and the share of the epoch spent waiting for the loader, and a checkpoint
+every ``ckpt_interval_epochs`` and after the last epoch; ``--resume``
+continues from the newest checkpoint in ``--ckpt-dir``. Runs on ``cuda``
+unless ``--device cpu``.
+
+Not ported yet: several cards (the JAX package's device mesh), PV-RCNN
+(``--model pvrcnn|pvrcnn2``, ROADMAP A11), and dense late stages in
+training (``--dense-from`` below 4 raises in the model, ROADMAP A9b).
+"""
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+
+def main(argv=None):
+    """Returns one record per epoch run: steps, seconds, frames/s, host
+    wait, the loss of every step and the checkpoint written (or None)."""
+    from vision3d_tpu_torch.eval_cli import add_data_args, with_data_overrides
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=None, help="reference-format YAML")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--ckpt-dir", default=None)
+    add_data_args(ap)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--metrics-jsonl", default="./metrics.jsonl")
+    ap.add_argument("--workers", type=int, default=6,
+                    help="data-loader worker processes")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model", default="second",
+                    choices=["second", "pvrcnn", "pvrcnn2"])
+    ap.add_argument("--dense-from", type=int, default=None,
+                    help="cfg.train_dense_from_stage override; the default 4 "
+                         "trains every stage sparse")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.model != "second":
+        raise NotImplementedError(
+            f"--model {args.model}: PV-RCNN is not ported yet (ROADMAP A11)")
+
+    import torch
+
+    from vision3d_tpu_torch.config import Config
+    from vision3d_tpu_torch.data.kitti import KittiDatasetTrain
+    from vision3d_tpu_torch.data.loader import DataLoader
+    from vision3d_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
+    from vision3d_tpu_torch.training.metrics import JsonlWriter, MetricLogger, StdoutWriter
+    from vision3d_tpu_torch.training.train import create_train_state, make_train_step
+
+    cfg = Config.from_yaml(args.config) if args.config else Config()
+    overrides = {k: v for k, v in (("epochs", args.epochs),
+                                   ("batch_size", args.batch_size),
+                                   ("ckpt_dir", args.ckpt_dir)) if v}
+    if overrides:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **overrides))
+    cfg = with_data_overrides(cfg, args)
+    if args.dense_from is not None:
+        cfg = cfg.replace(train_dense_from_stage=args.dense_from)
+    device = torch.device(args.device)
+
+    dataset = KittiDatasetTrain(cfg, rng=np.random.default_rng(args.seed))
+    loader = DataLoader(dataset, cfg, seed=args.seed, num_workers=args.workers)
+    steps_per_epoch = len(loader)
+    model, tx, state = create_train_state(
+        cfg, torch.Generator().manual_seed(args.seed), steps_per_epoch, device)
+    start_epoch = 0
+    if args.resume:
+        state, start_epoch = maybe_resume(cfg.train.ckpt_dir, state)
+    step_fn = make_train_step(model, tx, cfg)
+    logger = MetricLogger(writers=[StdoutWriter(), JsonlWriter(args.metrics_jsonl)])
+
+    records = []
+    try:
+        for epoch in range(start_epoch, cfg.train.epochs):
+            t_epoch = time.perf_counter()
+            t_host = 0.0
+            losses_seen = []
+            t0 = time.perf_counter()
+            for batch in loader:
+                t_host += time.perf_counter() - t0
+                batch.pop("frame_idx", None)
+                batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+                state, losses = step_fn(state, batch)
+                losses = {k: float(v) for k, v in losses.items()}
+                losses_seen.append(losses["loss"])
+                logger.update(state.step, losses)
+                t0 = time.perf_counter()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t_epoch
+            n_frames = steps_per_epoch * cfg.train.batch_size
+            print(f"epoch {epoch}: {dt:.1f}s ({n_frames / dt:.1f} frames/s; "
+                  f"host wait {t_host:.1f}s = {t_host / dt:.0%})", flush=True)
+            path = None
+            # save after every ckpt_interval_epochs-th epoch and the last one
+            if ((epoch + 1) % cfg.train.ckpt_interval_epochs == 0
+                    or epoch == cfg.train.epochs - 1):
+                path = save_checkpoint(cfg.train.ckpt_dir, state, epoch)
+                print(f"saved {path}")
+            records.append(dict(epoch=epoch, steps=len(losses_seen), seconds=dt,
+                                frames_per_s=n_frames / dt, host_wait_s=t_host,
+                                losses=losses_seen, checkpoint=path))
+    finally:
+        loader.close()
+    return records
+
+
+if __name__ == "__main__":
+    main()

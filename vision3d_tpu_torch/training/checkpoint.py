@@ -32,6 +32,13 @@ def load_checkpoint(path: str, target: TrainState) -> TrainState:
     return target
 
 
+def model_state_dict(path: str) -> dict:
+    """The model's state_dict alone, on the CPU, for evaluation and
+    inference."""
+    ckpt = torch.load(osp.abspath(path), map_location="cpu", weights_only=True)
+    return ckpt["model"]
+
+
 def maybe_resume(ckpt_dir: str, target: TrainState):
     """(state, first epoch to run): the newest ``epoch_*`` wins; with none,
     the untouched state and epoch 0."""

@@ -1,5 +1,6 @@
 """Training metrics: running averages + pluggable writers (copy of
-``vision3d_tpu/training/metrics.py`` without its TensorBoard writer).
+``vision3d_tpu/training/metrics.py``): stdout lines, JSONL, and
+TensorBoard, whose package is imported only when that writer is made.
 Metric keys are ``<key>_cur`` / ``<key>_avg``."""
 
 import json
@@ -59,3 +60,18 @@ class MetricLogger:
                 out[f"{k}_avg"] = self.meter.average(k)
             for w in self.writers:
                 w.write(step, out)
+
+
+class TensorBoardWriter:
+    """TensorBoard event files under ``logdir`` (needs the ``tensorboard``
+    package, imported here and nowhere else)."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.w = SummaryWriter(logdir)
+
+    def write(self, step, metrics: dict):
+        for k, v in metrics.items():
+            self.w.add_scalar(k, v, step)
+        self.w.flush()
