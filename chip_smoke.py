@@ -3,8 +3,9 @@ against its plain PyTorch version at the shapes SECOND gives it, runs
 full-geometry 3-class SECOND inference (configs/second/all_classes.yaml,
 trained weights, bf16, batch 8 x 18,000 points) end to end on the voxel
 and on the column backend, takes training steps of the same model from a
-fresh seeded init, and trains, evaluates and draws through the
-command-line entry points on a synthetic KITTI-format set.
+fresh seeded init, trains, evaluates and draws through the
+command-line entry points on a synthetic KITTI-format set, and runs
+PV-RCNN inference, one stage and two, at full width and through eval_cli.
 
     python3 chip_smoke.py
 
@@ -69,13 +70,37 @@ Phases, each printing lines before the last:
      the JAX package's on the same frames and weights in all 9 entries
      (tests/goldens/torch_eval_ap_jax_t16v48.json), with launches per
      batch and frames/s; inference_cli's BEV PNG of one frame from the
-     checkpoint.
+     checkpoint;
+  8. PV-RCNN inference (``models/pvrcnn.py``) on the voxel backend, from a
+     fresh seeded init (``init_pvrcnn``, CPU generator seed 0) whose batch
+     norms then take one batch's statistics (a train-mode forward with
+     momentum 1, so activations sit near unit scale and proposals near
+     anchor size, as a trained model's do) and with score thresholds 0
+     (the untrained head's scores sit near its 0.01 prior, below the
+     yaml's thresholds): (a) at full width, bf16, batch 8 x 18,000
+     points: inference (the BEV branch) and inference_two_stage (2048 FPS
+     keypoints, set abstraction over 5 sources, BEV gather, keypoint
+     weighting, RoI grid pool over 300 proposals x 16 grid points,
+     refinement, NMS), each with 6 zwin_conv launches per forward (5 on
+     the tensor-core route), capacity counters 0, 2048 distinct keypoints
+     per frame, finite 512-wide point features, valid detections; the p50
+     of 10 forwards after 3 warm-ups of each, the peak memory, and a
+     per-stage split of the two-stage forward (host clock, synchronised
+     at each stage's end); (b) at small geometry in float32 with TF32
+     off, card against CPU on the same weights and the same CPU-drawn
+     grid points: keypoint and ball-query indices (5 sources x 2 radii)
+     equal, point features, proposals, refined boxes and scores within
+     1e-4 of their scale, detections paired by the column-vs-voxel gate;
+     (c) eval_cli --model pvrcnn2 on phase 7's 48 val frames from the
+     seeded init in the yaml's float32 (6 zwin_conv per batch, all on the
+     FMA route), frames/s, no AP gate (no trained PV-RCNN weights exist).
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
 """
 
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import io
@@ -96,9 +121,18 @@ from vision3d_tpu_torch.models.second import create_second
 from vision3d_tpu_torch.core.anchors import make_anchors
 from vision3d_tpu_torch.core.targets import assign_targets_batch
 from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch
+from vision3d_tpu_torch.models.head import decode_proposals, multiclass_nms
 from vision3d_tpu_torch.models.losses import proposal_loss
-from vision3d_tpu_torch.models.sparse_cnn import (SpMiddleFHD, from_voxels,
-                                                  from_voxels_columns)
+from vision3d_tpu_torch.models.pvrcnn import (bev_bilinear_gather, create_pvrcnn,
+                                              point_mask)
+from vision3d_tpu_torch.models.refinement import apply_refinements
+from vision3d_tpu_torch.models.rpn import BatchNorm2d
+from vision3d_tpu_torch.models.second import build_middle_input
+from vision3d_tpu_torch.models.sparse_cnn import (MaskedBatchNorm, SpMiddleFHD,
+                                                  from_voxels, from_voxels_columns,
+                                                  to_global)
+from vision3d_tpu_torch.ops.ball_query import ball_query
+from vision3d_tpu_torch.ops.fps import sample_keypoints
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops import zwin_conv as zw
@@ -133,6 +167,11 @@ BACKENDS_MAX_BOX, BACKENDS_MAX_SCORE = 0.1, 0.02
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet peaks
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12        # outside the tensor cores
+# PV-RCNN, card against CPU at small geometry in float32 (phase 8b): sums
+# in other orders (cuDNN and cuBLAS against the CPU's) through the trunk
+# and the point branch; 10x the port-against-JAX bound of the CPU tests
+PV_TOL = 1e-4
+PV_REF_POINTS = 8000          # points per cloud of phase 8b (the CPU's time)
 
 
 class SmokeFailure(RuntimeError):
@@ -1124,6 +1163,260 @@ def cli_phase(cfg, shapes, gg_rows, gr_rows):
     return out
 
 
+def pvrcnn_cfg(cfg):
+    """Phase 8's config: ``cfg`` with every class's score threshold 0."""
+    return cfg.replace(anchors=tuple(dataclasses.replace(a, score_thresh=0.0)
+                                     for a in cfg.anchors))
+
+
+def calibrate_bn(model, points, num, anchors):
+    """Every batch norm's running statistics set to those of one two-stage
+    forward on (points, num): train mode with momentum 1, no gradients."""
+    bns = [m for m in model.modules() if isinstance(m, (MaskedBatchNorm, BatchNorm2d))]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model.two_stage(points, num, anchors, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    for m, mom in zip(bns, saved):
+        m.momentum = mom
+
+
+def pvrcnn_stages(model, anchors, points, num, generator):
+    """One two-stage forward of ``model`` run stage by stage as
+    ``PV_RCNN.inference_two_stage`` runs it, each stage ended by a
+    synchronise on the card: (host-clock ms per stage, intermediates)."""
+    cfg = model.cfg
+    ms = {}
+
+    def stage(name, fn):
+        if points.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if points.is_cuda:
+            torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    mask = point_mask(points, num)
+    kp, kp_idx = stage("fps", lambda: sample_keypoints(points[..., :3], mask,
+                                                       cfg.num_keypoints))
+
+    def voxelize():
+        vox = voxelize_batch(points, num, cfg)
+        return vox, build_middle_input(cfg, vox)[0]
+
+    vox, st = stage("voxelize", voxelize)
+    bev, cnn_diag, scales = stage("cnn", lambda: model.cnn(st, need_scales=True))
+
+    def rpn_head():
+        x = model.rpn(bev.permute(0, 3, 1, 2).float())
+        return (x,) + tuple(model.head(x))
+
+    x, cls_map, reg_map = stage("rpn_head", rpn_head)
+    sources = [(points[..., :3], points[..., 3:4], mask)]
+    feats = [stage("sa_source0", lambda: model.pnets[0](*sources[0], kp))]
+    for i, (sc, stride) in enumerate(zip(scales, cfg.strides), start=1):
+        def sa(i=i, sc=sc, stride=stride):
+            sources.append(to_global(sc, cfg, stride))
+            return model.pnets[i](*sources[i], kp)
+        feats.append(stage(f"sa_source{i}", sa))
+    feats.append(stage("bev_gather", lambda: bev_bilinear_gather(
+        x.permute(0, 2, 3, 1), kp[..., :2], cfg)))
+    pf = torch.cat(feats, dim=-1)
+    boxes, scores = stage("proposal_decode", lambda: decode_proposals(
+        cls_map, reg_map, anchors, cfg))
+    b = boxes.shape[0]
+    proposals, prop_scores = boxes.reshape(b, -1, cfg.box_dof), scores.reshape(b, -1)
+
+    def weighting():
+        seg = model.keypoint_seg(pf)
+        return pf * (1.0 - torch.softmax(seg, dim=-1)[..., -1:])
+
+    weighted = stage("keypoint_seg", weighting)
+    kp_mask = torch.ones(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    pooled = stage("roi_grid_pool", lambda: model.roi_grid_pool(
+        proposals, kp, weighted, kp_mask, generator=generator))
+    deltas, logits = stage("refinement", lambda: model.refinement(pooled))
+
+    def nms():
+        refined = apply_refinements(deltas, proposals)
+        conf = torch.sigmoid(logits) * prop_scores
+        k = cfg.proposal.topk
+        return refined, conf, multiclass_nms(refined.reshape(b, cfg.num_classes, k, 7),
+                                             conf.reshape(b, cfg.num_classes, k), cfg)
+
+    refined, conf, det = stage("nms", nms)
+    diag = {k: int(v.sum()) for k, v in cnn_diag.items()}
+    diag["voxelizer_dropped"] = int((vox["num_voxels_total"] - vox["num_voxels"]).sum())
+    return ms, dict(keypoint_idx=kp_idx, keypoints=kp, sources=sources,
+                    point_features=pf, proposals=proposals, refined=refined,
+                    conf=conf, det=det, diag=diag)
+
+
+def check_counters(diag, where):
+    for k, v in diag.items():
+        if k != "voxelizer_dropped":
+            check(int(v) == 0, f"{where}: capacity counter {k} = {int(v)}")
+
+
+def pvrcnn_phase(cfg, dev, want_zwin):
+    """Phase 8a: PV-RCNN at full width on the card."""
+    cfg = pvrcnn_cfg(cfg)
+    model, anchors = create_pvrcnn(cfg, device=dev)
+    pts, num = kitti_like_batch(0, BATCH, POINTS)
+    points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
+    calibrate_bn(model, points, num_t, anchors)
+    gen = lambda: torch.Generator().manual_seed(0)     # noqa: E731
+    with torch.no_grad():
+        (det1, diag1), l1 = counted(lambda: model.inference(points, num_t, anchors),
+                                    want_zwin)
+        (det2, diag2), l2 = counted(lambda: model.inference_two_stage(
+            points, num_t, anchors, generator=gen()), want_zwin)
+        (ms, inter), l3 = counted(lambda: pvrcnn_stages(model, anchors, points, num_t,
+                                                        gen()), want_zwin)
+    check_counters(diag1, "pvrcnn inference")
+    check_counters(diag2, "pvrcnn inference_two_stage")
+    check_counters(inter["diag"], "pvrcnn stage split")
+    k = cfg.num_keypoints
+    distinct = [len(torch.unique(r)) for r in inter["keypoint_idx"]]
+    check(distinct == [k] * BATCH, f"distinct keypoints per frame {distinct}")
+    pf = inter["point_features"]
+    check(tuple(pf.shape) == (BATCH, k, 384 + cfg.proposal.c_in)
+          and bool(torch.isfinite(pf).all()), f"point features {tuple(pf.shape)}")
+    for name, det in (("inference", det1), ("inference_two_stage", det2)):
+        for f, t in det._asdict().items():
+            if t.is_floating_point():
+                check(bool(torch.isfinite(t).all()), f"pvrcnn {name}: non-finite {f}")
+        check(int(det.valid.sum()) > 0, f"pvrcnn {name}: no valid detection")
+    # the stage split runs the model's own path
+    check(torch.equal(inter["det"].valid, det2.valid)
+          and agrees(inter["det"].boxes[det2.valid], det2.boxes[det2.valid], 1e-5),
+          "the stage split's detections differ from inference_two_stage's")
+
+    def p50(fn):
+        times = []
+        with torch.no_grad():
+            for i in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times)), times
+
+    one_p50, _ = p50(lambda: model.inference(points, num_t, anchors))
+    torch.cuda.reset_peak_memory_stats()
+    two_p50, two_times = p50(lambda: model.inference_two_stage(points, num_t, anchors,
+                                                               generator=gen()))
+    peak = int(torch.cuda.max_memory_allocated())
+    with torch.no_grad():
+        split = [pvrcnn_stages(model, anchors, points, num_t, gen()) for _ in range(4)]
+    split_ms = {k_: float(np.median([s[0][k_] for s in split[1:]])) for k_ in split[0][0]}
+    # the ball queries alone (both radii) of each source's set abstraction
+    inter = split[-1][1]
+    del split
+    bq_ms = {}
+    for i, ((xyz, _, msk), pnet) in enumerate(zip(inter["sources"], model.pnets)):
+        bq_ms[f"source{i}"] = cuda_ms(lambda: [
+            ball_query(xyz, msk, inter["keypoints"], r, s_)
+            for r, s_ in zip(pnet.radii, pnet.nsamples)], reps=5, warmup=1)
+        bq_ms[f"source{i}_n"] = int(xyz.shape[1])
+    return dict(ball_query_ms=bq_ms, launches=l2, launches_one_stage=l1,
+                valid_one_stage=det1.valid.sum(1).tolist(),
+                valid_two_stage=det2.valid.sum(1).tolist(),
+                counters={k_: int(v) for k_, v in diag2.items()},
+                p50_one_stage_ms=one_p50, p50_two_stage_ms=two_p50,
+                two_stage_ms=[float(t) for t in two_times], peak_mem_bytes=peak,
+                stage_ms=split_ms, stage_sum_ms=float(sum(split_ms.values())))
+
+
+def pvrcnn_reference_phase(dev):
+    """Phase 8b: small geometry, float32 (called under ``full_float32()``):
+    the card against the CPU on one set of weights and grid-point draws."""
+    cfg = pvrcnn_cfg(small_geometry_cfg())
+    pts, num = crop_to_grid(cfg, kitti_like_batch(1, 2, 60000)[0])
+    pts, num = pts[:, :PV_REF_POINTS], np.minimum(num, PV_REF_POINTS)
+    cpu = torch.device("cpu")
+    model, anchors = create_pvrcnn(cfg, device=cpu)
+    calibrate_bn(model, torch.from_numpy(pts), torch.from_numpy(num), anchors)
+    sd = model.state_dict()
+    radii = [(r, s) for rr in cfg.psa.radii for r, s in zip(rr, cfg.samples_pn)]
+    runs = []
+    for d in (dev, cpu):
+        m, a = create_pvrcnn(cfg, device=d, state_dict=sd)
+        zw.reset_launches()
+        with torch.no_grad():
+            _, inter = pvrcnn_stages(m, a, torch.from_numpy(pts).to(d),
+                                     torch.from_numpy(num).to(d),
+                                     torch.Generator().manual_seed(0))
+            inter["ball_query"] = [
+                ball_query(xyz, msk, inter["keypoints"], r, s)
+                for (xyz, _, msk), pair in zip(inter["sources"], zip(radii[::2], radii[1::2]))
+                for r, s in pair]
+        want = {} if d.type == "cpu" else {"zwin_conv": 6, "zwin_conv.fma": 6}
+        launched = {k: n for k, n in zw.LAUNCHES.items() if n}
+        check(launched == want, f"pvrcnn reference on {d.type}: launches {launched}")
+        runs.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                     for k, v in inter.items()})
+    g, c = runs
+    bq_equal = all(torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+                   for (gi, gv), (ci, cv) in zip(g["ball_query"], c["ball_query"]))
+    errs = {}
+    for key in ("point_features", "proposals", "refined", "conf"):
+        ref = c[key]
+        errs[key] = float((g[key] - ref).abs().max() / ref.abs().max())
+    gdet = type(g["det"])(*[t.cpu() for t in g["det"]])
+    cmp = compare_backends(gdet, c["det"])
+    out = dict(points=int(num[0]), keypoints_equal=torch.equal(g["keypoint_idx"],
+                                                               c["keypoint_idx"]),
+               ball_query_equal=bq_equal, ball_queries=len(c["ball_query"]),
+               counters=c["diag"], rel_err=errs, detections=cmp)
+    print(f"pvrcnn reference (card vs CPU, f32, small geometry): {out}", flush=True)
+    check(out["keypoints_equal"], "keypoint indices differ between card and CPU")
+    check(bq_equal, "ball-query indices differ between card and CPU")
+    check(g["diag"] == c["diag"], f"counters differ: card {g['diag']} vs CPU {c['diag']}")
+    for key in errs:
+        check(agrees(g[key], c[key], PV_TOL), f"{key} differs: {errs[key]:.3g} of scale")
+    n = max(cmp["n_a"], cmp["n_b"], 1)
+    check(cmp["n_a"] > 0 and max(cmp["unmatched_a"], cmp["unmatched_b"])
+          <= BACKENDS_MAX_UNMATCHED * n and cmp["box_delta"] <= BACKENDS_MAX_BOX
+          and cmp["score_delta"] <= BACKENDS_MAX_SCORE,
+          f"card and CPU detections disagree: {cmp}")
+    return out
+
+
+def pvrcnn_cli_phase(shapes):
+    """Phase 8c: eval_cli --model pvrcnn2 on the card, the seeded init, on
+    phase 7's synthetic val frames, in the yaml's float32."""
+    from vision3d_tpu_torch import eval_cli
+
+    golden = json.loads(GOLDEN.read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        subprocess.run([sys.executable, str(ROOT / "tools" / "make_synthetic_kitti.py"),
+                        "--out", str(tmp), *golden["generator_args"]], check=True,
+                       capture_output=True)
+        val = np.loadtxt(tmp / "splitfiles" / "val.txt", dtype=np.int64).tolist()
+        batches = -(-len(val) // BATCH)
+        want = launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
+                           batches)
+        (table, timing), launches = counted(lambda: eval_cli.main(
+            ["--config", str(CONFIG), "--data-root", str(tmp / "training"),
+             "--split-dir", str(tmp / "splitfiles"), "--cache-dir", str(tmp / "cache"),
+             "--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
+        check(timing["frames"] == len(val) and (tmp / "ap.json").exists(),
+              f"eval_cli --model pvrcnn2 evaluated {timing['frames']} frames")
+    check(all(np.isfinite(v) for row in table.values() for v in row.values()),
+          f"eval_cli --model pvrcnn2: {table}")
+    return dict(timing=timing, per_batch={k: v // batches for k, v in launches.items()},
+                table=table)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1237,6 +1530,31 @@ def main():
           f"{max(cli['ap_gaps'].values()):.4f} ({max(cli['ap_gaps'], key=cli['ap_gaps'].get)})",
           flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    pv = pvrcnn_phase(cfg, dev, want_zwin)
+    print(f"pvrcnn (batch {BATCH} x {POINTS} points, bf16, seeded init + one batch's BN "
+          f"statistics): one stage p50 {pv['p50_one_stage_ms']:.2f} ms, two stages p50 "
+          f"{pv['p50_two_stage_ms']:.2f} ms, peak mem {pv['peak_mem_bytes'] / 2**30:.2f} "
+          f"GiB, valid detections per frame {pv['valid_two_stage']} (one stage "
+          f"{pv['valid_one_stage']}), counters {pv['counters']}, launches per forward "
+          f"{pv['launches']} (one stage {pv['launches_one_stage']})", flush=True)
+    print("pvrcnn two-stage split (ms, host clock, synchronised per stage): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in pv["stage_ms"].items())
+          + f"; sum {pv['stage_sum_ms']:.2f}; of which the ball queries alone (ms, "
+          f"CUDA events; _n: the source's capacity) {pv['ball_query_ms']}", flush=True)
+    with full_float32():
+        pvref = pvrcnn_reference_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvcli = pvrcnn_cli_phase(shapes)
+    print(f"eval_cli --model pvrcnn2 (float32, seeded init): {pvcli['timing']['frames']} "
+          f"frames in {pvcli['timing']['seconds']:.2f} s "
+          f"({pvcli['timing']['frames'] / pvcli['timing']['seconds']:.2f} frames/s), "
+          f"launches per batch {pvcli['per_batch']}, AP (untrained, no gate) "
+          f"{pvcli['table']}", flush=True)
+    del pvref
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1262,6 +1580,9 @@ def main():
          # the command-line paths, at the yaml's compute dtype
          "launches_eval_cli_per_batch": per_batch,
          "launches_inference_cli": cli["inference_launches"],
+         # PV-RCNN's trunk (phase 8): per two-stage forward and per eval_cli batch
+         "launches_pvrcnn_per_forward": pv["launches"],
+         "launches_eval_cli_pvrcnn2_per_batch": pvcli["per_batch"],
          "ms": per(shapes, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(shapes, "bf16_bound_ms", "launches_per_forward"),

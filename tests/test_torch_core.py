@@ -67,7 +67,8 @@ def test_port_imports_nothing_of_jax():
                 "ops.column_sparse", "ops.column_conv", "core.iou_host",
                 "core.preprocess", "data.kitti", "data.augment", "data.loader",
                 "eval.kitti_eval", "eval_cli", "train_cli", "inference_cli",
-                "utils.bev_drawer"):
+                "utils.bev_drawer", "ops.fps", "ops.ball_query", "models.pointnet",
+                "models.refinement", "models.pvrcnn"):
         assert "vision3d_tpu_torch." + new in mods
 
 

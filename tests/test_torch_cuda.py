@@ -1,6 +1,7 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
 column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
-versions, on the card. Every test here needs a CUDA device and skips without one. This
+versions, on the card, and PV-RCNN's inference on the card against the
+CPU. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -730,3 +731,22 @@ def test_zwin_align_fma_route_forced_and_float32(variant, cuda_device):
     with pytest.raises(ValueError):
         fn(g_km, masks[variant], w, route="wgmma")
     assert _za_counts(variant) == before
+
+
+def test_pvrcnn_card_matches_cpu(cuda_device):
+    """PV-RCNN two-stage inference at small geometry, float32 with TF32 off,
+    card against CPU on one set of weights and CPU-drawn grid points
+    (``chip_smoke.py`` phase 8b, which raises on any difference): keypoint
+    and ball-query indices equal, point features, proposals, refined boxes
+    and scores within 1e-4 of their scale, detections paired, 6 zwin_conv
+    launches on the card, all on the FMA route."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    with chip_smoke.full_float32():
+        out = chip_smoke.pvrcnn_reference_phase(cuda_device)
+    assert out["keypoints_equal"] and out["ball_query_equal"]
+    assert out["ball_queries"] == 10 and out["detections"]["n_a"] > 0

@@ -305,9 +305,13 @@ def test_bev_drawer_matches_jax(monkeypatch):
 
 
 def test_clis_refuse_what_is_not_ported(trained, tmp_path):
+    """PV-RCNN training and dense late training stages are not ported;
+    eval_cli runs PV-RCNN (tests/test_torch_pvrcnn.py) but refuses to load
+    SECOND's weights into it."""
     yml = str(trained[0])
-    with pytest.raises(NotImplementedError, match="A11"):
-        eval_cli.main(["--config", yml, "--model", "pvrcnn", "--device", "cpu"])
+    with pytest.raises(ValueError, match="not a PV-RCNN"):
+        eval_cli.main(["--config", yml, "--model", "pvrcnn", "--weights", str(WEIGHTS),
+                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A11"):
         train_cli.main(["--config", yml, "--model", "pvrcnn2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="dense late stages"):

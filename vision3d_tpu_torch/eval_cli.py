@@ -1,16 +1,23 @@
-"""KITTI validation evaluation with the PyTorch port: run SECOND over a
-split and report the official-protocol 3D AP@R40 table (counterpart of
-``vision3d_tpu/eval_cli.py``).
+"""KITTI validation evaluation with the PyTorch port: run SECOND or
+PV-RCNN over a split and report the official-protocol 3D AP@R40 table
+(counterpart of ``vision3d_tpu/eval_cli.py``).
 
     python -m vision3d_tpu_torch.eval_cli --config configs/second/all_classes.yaml \\
-        --ckpt ./ckpts/epoch_11 --split val [--out-json ap.json]
+        --ckpt ./ckpts/epoch_11 --split val [--out-json ap.json] \\
+        [--model second|pvrcnn|pvrcnn2]
 
 ``--ckpt`` loads a checkpoint this package trained (``train_cli``);
 ``--weights`` loads the ``.npz`` export of a JAX checkpoint
-(``tools/export_torch_weights.py``); with neither, the trained 3-class
-weights in ``vision3d_tpu_torch/weights/``. Inference runs under
-``torch.no_grad()`` in the config's ``compute_dtype``, on ``cuda`` unless
-``--device cpu``. SECOND only: PV-RCNN is not ported yet (ROADMAP A11).
+(``tools/export_torch_weights.py``); with neither, SECOND takes the trained
+3-class weights in ``vision3d_tpu_torch/weights/`` and PV-RCNN fresh
+weights (``init_pvrcnn`` from a CPU generator seeded 0, as the JAX CLI
+evaluates a ``PRNGKey(0)`` init). ``--weights`` for PV-RCNN must hold a
+PV-RCNN tree: SECOND's raises. ``--model pvrcnn`` runs the one-stage
+inference (the BEV branch), ``pvrcnn2`` the two-stage inference with its
+grid points drawn from a CPU generator re-seeded 0 for every batch (the
+JAX CLI passes ``PRNGKey(0)`` to every batch), so the CPU and the card
+draw the same. Inference runs under ``torch.no_grad()`` in the config's
+``compute_dtype``, on ``cuda`` unless ``--device cpu``.
 """
 
 import argparse
@@ -24,10 +31,25 @@ import torch
 from vision3d_tpu_torch.inference_cli import DEFAULT_WEIGHTS, load_state_dict
 
 
-def run_eval(cfg, model, anchors, dataset, batch_size=8, verbose=True):
+def infer_batch(model, model_kind, points, num_points, anchors):
+    """Detections of one batch, by the inference ``model_kind`` names."""
+    with torch.no_grad():
+        if model_kind == "pvrcnn2":
+            det, _ = model.inference_two_stage(
+                points, num_points, anchors,
+                generator=torch.Generator().manual_seed(0))
+        else:
+            det, _ = model.inference(points, num_points, anchors)
+    return det
+
+
+def run_eval(cfg, model, anchors, dataset, batch_size=8, verbose=True,
+             model_kind="second"):
     """Detections of ``model`` (eval mode, on its device) over ``dataset``
     -> (AP table {class -> {easy/moderate/hard -> AP}}, timing dict with
-    the frames evaluated and the seconds the loop took)."""
+    the frames evaluated and the seconds the loop took). ``model_kind``:
+    "second", "pvrcnn" (a PV_RCNN's one-stage inference) or "pvrcnn2"
+    (its two-stage inference)."""
     from vision3d_tpu_torch.data.loader import DataLoader
     from vision3d_tpu_torch.eval.kitti_eval import evaluate_all
     from vision3d_tpu_torch.models.head import extract_detections
@@ -38,10 +60,9 @@ def run_eval(cfg, model, anchors, dataset, batch_size=8, verbose=True):
     detections, ground_truths = [], []
     t0 = time.perf_counter()
     for batch in loader:
-        with torch.no_grad():
-            det, _ = model.inference(
-                torch.from_numpy(batch["points"]).to(device),
-                torch.from_numpy(batch["num_points"]).to(device), anchors)
+        det = infer_batch(model, model_kind,
+                          torch.from_numpy(batch["points"]).to(device),
+                          torch.from_numpy(batch["num_points"]).to(device), anchors)
         for b, d in enumerate(extract_detections(det)):
             fi = int(batch["frame_idx"][b])
             if fi < 0:
@@ -87,8 +108,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None)
     ap.add_argument("--ckpt", default=None, help="checkpoint from train_cli")
-    ap.add_argument("--weights", default=str(DEFAULT_WEIGHTS),
-                    help=".npz from tools/export_torch_weights.py")
+    ap.add_argument("--weights", default=None,
+                    help=".npz from tools/export_torch_weights.py (SECOND: "
+                         f"by default {DEFAULT_WEIGHTS.name})")
     ap.add_argument("--split", default="val")
     ap.add_argument("--batch-size", type=int, default=8)
     add_data_args(ap)
@@ -97,20 +119,33 @@ def main(argv=None):
                     choices=["second", "pvrcnn", "pvrcnn2"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model != "second":
-        raise NotImplementedError(
-            f"--model {args.model}: PV-RCNN is not ported yet (ROADMAP A11)")
 
     from vision3d_tpu_torch.config import Config
     from vision3d_tpu_torch.data.kitti import KittiDataset
-    from vision3d_tpu_torch.models.second import create_second
 
     cfg = with_data_overrides(
         Config.from_yaml(args.config) if args.config else Config(), args)
     dataset = KittiDataset(cfg, split=args.split)
-    model, anchors = create_second(cfg, device=torch.device(args.device),
-                                   state_dict=load_state_dict(args))
-    table, timing = run_eval(cfg, model, anchors, dataset, args.batch_size)
+    device = torch.device(args.device)
+    if args.model == "second":
+        from vision3d_tpu_torch.models.second import create_second
+
+        if not args.weights:
+            args.weights = str(DEFAULT_WEIGHTS)
+        model, anchors = create_second(cfg, device=device,
+                                       state_dict=load_state_dict(args))
+    else:
+        from vision3d_tpu_torch import convert
+        from vision3d_tpu_torch.models.pvrcnn import create_pvrcnn
+
+        sd = None
+        if args.ckpt:
+            sd = load_state_dict(args)
+        elif args.weights:
+            sd = convert.pvrcnn_state_dict_from_flax(convert.load_npz(args.weights))
+        model, anchors = create_pvrcnn(cfg, device=device, state_dict=sd)
+    table, timing = run_eval(cfg, model, anchors, dataset, args.batch_size,
+                             model_kind=args.model)
     if args.out_json:
         with open(args.out_json, "w") as f:
             json.dump(table, f, indent=2)

@@ -55,8 +55,10 @@ class Second(nn.Module):
         self.rpn = RPN(c_in=c, c_down=c, c_up=c)
         self.head = ProposalHead(cfg)
 
-    def forward(self, points, num_points):
-        """points (B, P, C), num_points (B,) -> (cls_map, reg_map, diag)."""
+    def trunk(self, points, num_points, need_scales: bool = False):
+        """Voxelize, middle extractor, RPN, head: (RPN output (B, C, ny, nx),
+        cls_map, reg_map, diag, and with ``need_scales`` the middle
+        extractor's four scales, else None)."""
         cfg = self.cfg
         vox = voxelize_batch(points, num_points, cfg)
         diag = {"voxelizer_dropped":
@@ -64,10 +66,15 @@ class Second(nn.Module):
         st, col_dropped = build_middle_input(cfg, vox)
         if col_dropped is not None:
             diag["stage0_columns_dropped"] = col_dropped.sum()
-        bev, cnn_diag = self.cnn(st)
+        bev, cnn_diag, *scales = self.cnn(st, need_scales=need_scales)
         diag.update({k: v.sum() for k, v in cnn_diag.items()})
         x = self.rpn(bev.permute(0, 3, 1, 2).float())
         cls_map, reg_map = self.head(x)
+        return x, cls_map, reg_map, diag, (scales[0] if scales else None)
+
+    def forward(self, points, num_points):
+        """points (B, P, C), num_points (B,) -> (cls_map, reg_map, diag)."""
+        _, cls_map, reg_map, diag, _ = self.trunk(points, num_points)
         return cls_map, reg_map, diag
 
     def inference(self, points, num_points, anchors):

@@ -51,6 +51,11 @@ class SparseTensor:
     mask: torch.Tensor   # (B, N) bool
     grid: tuple
 
+    @property
+    def coords(self):
+        """(B, N, 3) ZYX coords (zeros at padding)."""
+        return sp.keys_to_coords(torch.where(self.mask, self.keys, 0), self.grid)
+
 
 @dataclass
 class ColumnTensor:
@@ -72,9 +77,27 @@ class ColumnTensor:
 
 @dataclass
 class DenseTensor:
+    """``keys`` / ``mask`` (the compact key set, as a SparseTensor's) ride
+    along only when a consumer needs the sparse form (PV-RCNN's scales)."""
     feats: torch.Tensor  # (B, C, D, H, W), channels-last-3d memory
     occ: torch.Tensor    # (B, D, H, W) bool: the exact spconv active set
     grid: tuple
+    keys: torch.Tensor = None   # (B, N) int32
+    mask: torch.Tensor = None   # (B, N) bool
+
+    def to_voxel_sparse(self) -> SparseTensor:
+        """The features at the kept key set, float32, zero at padding. The
+        volume is z-major, so column-major key (y*W + x)*D + z reads raster
+        row z*H*W + y*W + x (``DenseTensor.to_voxel_sparse``,
+        vision3d_tpu/models/sparse_cnn.py:107, its non-hwdc branch)."""
+        d, h, w = self.grid
+        b, c = self.feats.shape[:2]
+        flat = self.feats.permute(0, 2, 3, 4, 1).reshape(b, d * h * w, c)
+        k = torch.where(self.mask, self.keys, 0).long()
+        raster = (k % d) * (h * w) + k // d
+        bidx = torch.arange(b, device=k.device)[:, None]
+        f = torch.where(self.mask[..., None], flat[bidx, raster].float(), 0.0)
+        return SparseTensor(feats=f, keys=self.keys, mask=self.mask, grid=self.grid)
 
 
 def from_voxels(feats, coords, mask, grid) -> SparseTensor:
@@ -114,13 +137,15 @@ def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
         occ=occ, grid=ct.grid)
 
 
-def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int):
+def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int,
+                           keep_keys: bool = False):
     """Densify a sparse tensor, keeping at most ``ncol_cap`` active BEV
     columns per sample (the lowest column keys, as
     ``vision3d_tpu.ops.sparse.build_col_compact`` keeps them).
 
     Returns (DenseTensor, ncol_dropped (B,) int32). Sites of dropped
     columns are absent from the dense volume; callers surface the count.
+    ``keep_keys`` carries the input's keys and mask, all of them, along.
     """
     d, h, w = st.grid
     b, n, c = st.feats.shape
@@ -143,7 +168,9 @@ def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int):
     occ[flat] = True
     feats = dense[:total].reshape(b, d, h, w, c).permute(0, 4, 1, 2, 3)
     occ = occ[:total].reshape(b, d, h, w)
-    return DenseTensor(feats=feats, occ=occ, grid=st.grid), ncol_dropped
+    return DenseTensor(feats=feats, occ=occ, grid=st.grid,
+                       keys=st.keys if keep_keys else None,
+                       mask=st.mask if keep_keys else None), ncol_dropped
 
 
 def dense_dilate_occ(occ, kernel, stride, pad):
@@ -273,7 +300,13 @@ class SparseConvDown(nn.Module):
             oz = dense_dilate_occ(x.occ, self.kernel, self.stride, self.pad)
             of = self.bn(of, oz, channel_dim=1)
             of = torch.where(oz[:, None], F.relu(of), 0.0).to(self.cdt)
-            return DenseTensor(feats=of, occ=oz, grid=out_grid)
+            okeys = omask = None
+            if x.keys is not None:
+                okeys, omask, _ = sp.downsample_active_set(
+                    x.keys, x.mask, x.grid, self.kernel, self.stride, self.pad,
+                    self.out_cap)
+            return DenseTensor(feats=of, occ=oz, grid=out_grid, keys=okeys,
+                               mask=omask)
         if len(plan) == 4:   # training plan with the transpose rulebook
             rb, rbt, ok, om = plan
             of = sp.DownConvFn.apply(x.feats, rb, rbt, self.weight, self.cdt)
@@ -328,6 +361,22 @@ def to_bev(x) -> torch.Tensor:
     return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
 
 
+def to_global(st: SparseTensor, cfg: Config, stride: int):
+    """Voxel indices -> metric xyz of each voxel's ORIGIN corner (not its
+    centre), as the reference and ``vision3d_tpu/models/sparse_cnn.py:666``
+    compute it: xyz = flip(zyx) * voxel_size * stride + offset, rounded as
+    XLA's CPU code fuses it (one multiply-add: the float64 product of the
+    coordinate and the float32 step is exact, so one float64 sum rounded
+    to float32 is the fused result). Returns (xyz (B, N, 3), feats, mask),
+    xyz zero at padding."""
+    vs = torch.tensor(cfg.voxel_size, dtype=torch.float32) * stride
+    off = torch.tensor(cfg.grid_bounds[:3], dtype=torch.float32)
+    coords = st.coords.flip(-1).double()
+    xyz = (coords * vs.double().to(coords.device)
+           + off.double().to(coords.device)).float()
+    return torch.where(st.mask[..., None], xyz, 0.0), st.feats, st.mask
+
+
 class SpMiddleFHD(nn.Module):
     """Reference channel plan: per block 2-3 subm convs then a strided
     conv; 4 -> 16 -> 32 -> 64 -> 64."""
@@ -366,14 +415,22 @@ class SpMiddleFHD(nn.Module):
                                 out_col_cap=c.stage_column_capacity(4))),
         ]
 
-    def forward(self, st):
+    def forward(self, st, need_scales: bool = False):
         """st: a SparseTensor or (inference only) a ColumnTensor. Returns
         (bev (B, H, W, C*D), diagnostics {name: (B,) int32}). In training
         mode every stage is sparse and planned with
         ``sp.plan_stage_train_batched``; ``stage{1..4}_dropped`` count
         the active output sites each stage's capacity truncated. On a
         ColumnTensor ``stage{1..4}_columns_dropped`` count the active
-        output columns each sparse stage's column capacity truncated."""
+        output columns each sparse stage's column capacity truncated.
+
+        ``need_scales`` (PV-RCNN's set abstraction, voxel backend only)
+        returns (bev, diagnostics, scales) with the four SparseTensors at
+        strides 1, 2, 4 and 8: the input, then the outputs of stages 0-2
+        (a dense stage's output read back at its compact key set)."""
+        if need_scales and isinstance(st, ColumnTensor):
+            raise NotImplementedError(
+                "need_scales on the column backend is not ported (ROADMAP A16)")
         cfg = self.cfg
         dense_from = (cfg.train_dense_from_stage if self.training
                       else cfg.dense_from_stage)
@@ -383,11 +440,12 @@ class SpMiddleFHD(nn.Module):
                 f"= {dense_from} < 4) is not ported")
         diag = {}
         x = st
+        scales = [st]
         li = 0
         for si, (chans, spec) in enumerate(self.block_specs()):
             if si >= dense_from and isinstance(x, SparseTensor):
                 x, cdrop = dense_from_sparse_cols(
-                    x, cfg.stage_column_capacity(si))
+                    x, cfg.stage_column_capacity(si), keep_keys=need_scales)
                 diag[f"stage{si}_densify_dropped"] = cdrop
             elif si >= dense_from and isinstance(x, ColumnTensor):
                 x = dense_from_columns(x)
@@ -418,7 +476,13 @@ class SpMiddleFHD(nn.Module):
                     self.down[si].forward_columns(x)
             else:
                 x = self.down[si](x, plan)
-        return to_bev(x), diag
+            if need_scales:
+                scales.append(x)
+        if not need_scales:
+            return to_bev(x), diag
+        scales = [s.to_voxel_sparse() if isinstance(s, DenseTensor) else s
+                  for s in scales[:-1]]
+        return to_bev(x), diag, scales
 
 
 class SpMiddleFHDLite(SpMiddleFHD):

@@ -14,7 +14,7 @@ continues from the newest checkpoint in ``--ckpt-dir``. Runs on ``cuda``
 unless ``--device cpu``.
 
 Not ported yet: several cards (the JAX package's device mesh), PV-RCNN
-(``--model pvrcnn|pvrcnn2``, ROADMAP A11), and dense late stages in
+training (``--model pvrcnn|pvrcnn2``, ROADMAP A11b), and dense late stages in
 training (``--dense-from`` below 4 raises in the model, ROADMAP A9b).
 """
 
@@ -50,7 +50,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model != "second":
         raise NotImplementedError(
-            f"--model {args.model}: PV-RCNN is not ported yet (ROADMAP A11)")
+            f"--model {args.model}: PV-RCNN training is not ported yet (ROADMAP A11b)")
 
     import torch
 
