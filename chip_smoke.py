@@ -4,8 +4,9 @@ full-geometry 3-class SECOND inference (configs/second/all_classes.yaml,
 trained weights, bf16, batch 8 x 18,000 points) end to end on the voxel
 and on the column backend, takes training steps of the same model from a
 fresh seeded init, trains, evaluates and draws through the
-command-line entry points on a synthetic KITTI-format set, and runs
-PV-RCNN inference, one stage and two, at full width and through eval_cli.
+command-line entry points on a synthetic KITTI-format set, runs
+PV-RCNN inference, one stage and two, at full width and through eval_cli,
+and trains PV-RCNN in both modes at full width and through train_cli.
 
     python3 chip_smoke.py
 
@@ -93,7 +94,27 @@ Phases, each printing lines before the last:
      1e-4 of their scale, detections paired by the column-vs-voxel gate;
      (c) eval_cli --model pvrcnn2 on phase 7's 48 val frames from the
      seeded init in the yaml's float32 (6 zwin_conv per batch, all on the
-     FMA route), frames/s, no AP gate (no trained PV-RCNN weights exist).
+     FMA route), frames/s, no AP gate (no trained PV-RCNN weights exist);
+  9. PV-RCNN training (``make_pvrcnn_train_step``), stage 1 alone
+     ("pvrcnn": the proposal loss, the point branch run for its batch
+     norms) and both stages ("pvrcnn2": + refinement and keypoint
+     segmentation losses): (a) at phase 8a's full width, bf16, from a fresh
+     seeded init on phase 5's batch: launches of a step (27 gather_gemm, 26
+     on the tensor-core route, 14 gather_rows, no zwin_conv), capacity
+     counters 0, finite losses, the p50 of 6 steps after 3 warm-ups, peak
+     memory, every pnets_* running statistic moved, the stage-2
+     parameters moved (pvrcnn2) or absent (pvrcnn), and a synchronised
+     forward / backward / optimizer split of a two-stage step; (b) at
+     small geometry in float32 with TF32 off, one step of each mode on the
+     card and on the CPU from one set of weights and batch (gt boxes on the
+     first pass's proposals): keypoint and ball-query indices equal (11 and
+     13 index sets), losses to 1e-5 relative, gradients to 1e-4 of their
+     max on the card's ReLU gates (as phase 6), running statistics and the
+     parameters after the step as PV_STAT_TOL's comment says; (c)
+     train_cli --model pvrcnn and pvrcnn2 for one epoch of phase 7's 16
+     train frames, then eval_cli --ckpt of each checkpoint as its own
+     model, in the yaml's float32: launches per step and per batch,
+     frames/s, host wait, finite AP tables (no gate).
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -123,8 +144,10 @@ from vision3d_tpu_torch.core.targets import assign_targets_batch
 from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch
 from vision3d_tpu_torch.models.head import decode_proposals, multiclass_nms
 from vision3d_tpu_torch.models.losses import proposal_loss
-from vision3d_tpu_torch.models.pvrcnn import (bev_bilinear_gather, create_pvrcnn,
-                                              point_mask)
+from vision3d_tpu_torch.models import pointnet as tpointnet
+from vision3d_tpu_torch.models import pvrcnn as tpvrcnn
+from vision3d_tpu_torch.models.pvrcnn import (STAGE2_MODULES, bev_bilinear_gather,
+                                              create_pvrcnn, point_mask)
 from vision3d_tpu_torch.models.refinement import apply_refinements
 from vision3d_tpu_torch.models.rpn import BatchNorm2d
 from vision3d_tpu_torch.models.second import build_middle_input
@@ -140,7 +163,9 @@ from vision3d_tpu_torch.ops.column_conv import column_conv
 from vision3d_tpu_torch.ops.gather_gemm import gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
 from vision3d_tpu_torch.synthetic import kitti_like_batch, kitti_like_train_batch
-from vision3d_tpu_torch.training.train import create_train_state, make_train_step
+from vision3d_tpu_torch.training.train import (create_pvrcnn_train_state,
+                                               create_train_state, make_lr_schedule,
+                                               make_pvrcnn_train_step, make_train_step)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "second" / "all_classes.yaml"
@@ -171,7 +196,13 @@ F32_FLOP_PER_S = 67e12        # outside the tensor cores
 # in other orders (cuDNN and cuBLAS against the CPU's) through the trunk
 # and the point branch; 10x the port-against-JAX bound of the CPU tests
 PV_TOL = 1e-4
-PV_REF_POINTS = 8000          # points per cloud of phase 8b (the CPU's time)
+PV_REF_POINTS = 8000          # points per cloud of phases 8b and 9b (the CPU's time)
+PV_MODES = ("pvrcnn", "pvrcnn2")
+# PV-RCNN training, card against CPU at small geometry in float32 (phase
+# 9b): running statistics to 1e-5 of 1 + |value| (the CPU tests' bound
+# against JAX); the other gates are in pvrcnn_training_reference_phase
+PV_STAT_TOL = 1e-5
+PV_TRAIN_WARMUP, PV_TRAIN_TIMED = 3, 6
 
 
 class SmokeFailure(RuntimeError):
@@ -982,6 +1013,54 @@ def relu_gates(gates, replay):
         torch.nn.functional.relu = orig
 
 
+class _GatedMax(torch.autograd.Function):
+    """``x.amax(dim)`` whose backward splits the gradient evenly among the
+    positions ``sel`` marks (``amax``'s own rule on its own maxima)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, sel):
+        ctx.save_for_backward(sel)
+        ctx.dim = dim
+        return x.amax(dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sel,) = ctx.saved_tensors
+        return g.unsqueeze(ctx.dim) * sel / sel.sum(ctx.dim, keepdim=True), None, None
+
+
+@contextlib.contextmanager
+def max_gates(gates, replay):
+    """The group max-pools of the set abstraction (every ``Tensor.amax``
+    over one dim of a tensor that takes gradient) with their selections
+    explicit, in call order: recorded into ``gates`` as ``x == max``, or,
+    with ``replay``, taken from ``gates``. A ReLU output that is 0 on one
+    device and a float32 hair above it on the other turns a group's tie
+    into a single maximum, and the gradient then goes to one point, not
+    evenly to all; replaying the ReLU gates alone does not undo that. Yields
+    a list that collects, per max-pool, how many selections differ."""
+    orig, differ, calls = torch.Tensor.amax, [], iter(list(gates))
+
+    def amax(self, dim=None, keepdim=False):
+        if keepdim or not isinstance(dim, int) or not (torch.is_grad_enabled()
+                                                      and self.requires_grad):
+            return orig(self, dim, keepdim)
+        own = self == orig(self, dim, True)
+        if replay:
+            sel = next(calls).to(self.device)
+            differ.append(int((own != sel).sum()))
+        else:
+            sel = own
+            gates.append(own.cpu())
+        return _GatedMax.apply(self, dim, sel)
+
+    torch.Tensor.amax = amax
+    try:
+        yield differ
+    finally:
+        torch.Tensor.amax = orig
+
+
 def training_reference_phase(dev):
     """Phase 6: small geometry, float32, TF32 off: loss and gradients of one
     step's forward + backward on the card (kernels) against the CPU (plain
@@ -1079,6 +1158,17 @@ def counted(fn, want):
     return out, launches
 
 
+def synthetic_set(tmp, golden):
+    """Phase 7's synthetic KITTI-format set (GOLDEN's command) under
+    ``tmp``: (val frame indices, the CLIs' data arguments)."""
+    subprocess.run([sys.executable, str(ROOT / "tools" / "make_synthetic_kitti.py"),
+                    "--out", str(tmp), *golden["generator_args"]], check=True,
+                   capture_output=True)
+    val = np.loadtxt(tmp / "splitfiles" / "val.txt", dtype=np.int64).tolist()
+    return val, ["--config", str(CONFIG), "--data-root", str(tmp / "training"),
+                 "--split-dir", str(tmp / "splitfiles"), "--cache-dir", str(tmp / "cache")]
+
+
 def cli_phase(cfg, shapes, gg_rows, gr_rows):
     """Phase 7: the command-line entry points on a synthetic KITTI-format
     set written by tools/make_synthetic_kitti.py (GOLDEN's command):
@@ -1093,14 +1183,9 @@ def cli_phase(cfg, shapes, gg_rows, gr_rows):
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        subprocess.run([sys.executable, str(ROOT / "tools" / "make_synthetic_kitti.py"),
-                        "--out", str(tmp), *golden["generator_args"]], check=True,
-                       capture_output=True)
-        val = np.loadtxt(tmp / "splitfiles" / "val.txt", dtype=np.int64).tolist()
+        val, data = synthetic_set(tmp, golden)
         check(labels_sha256(tmp, val) == golden["val_labels_sha256"],
               "the synthetic set's val labels differ from those of the golden")
-        data = ["--config", str(CONFIG), "--data-root", str(tmp / "training"),
-                "--split-dir", str(tmp / "splitfiles"), "--cache-dir", str(tmp / "cache")]
         train = data + ["--batch-size", str(BATCH), "--workers", "2",
                         "--ckpt-dir", str(tmp / "ckpts"),
                         "--metrics-jsonl", str(tmp / "metrics.jsonl")]
@@ -1398,23 +1483,330 @@ def pvrcnn_cli_phase(shapes):
     golden = json.loads(GOLDEN.read_text())
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        subprocess.run([sys.executable, str(ROOT / "tools" / "make_synthetic_kitti.py"),
-                        "--out", str(tmp), *golden["generator_args"]], check=True,
-                       capture_output=True)
-        val = np.loadtxt(tmp / "splitfiles" / "val.txt", dtype=np.int64).tolist()
+        val, data = synthetic_set(tmp, golden)
         batches = -(-len(val) // BATCH)
         want = launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
                            batches)
         (table, timing), launches = counted(lambda: eval_cli.main(
-            ["--config", str(CONFIG), "--data-root", str(tmp / "training"),
-             "--split-dir", str(tmp / "splitfiles"), "--cache-dir", str(tmp / "cache"),
-             "--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
+            data + ["--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
         check(timing["frames"] == len(val) and (tmp / "ap.json").exists(),
               f"eval_cli --model pvrcnn2 evaluated {timing['frames']} frames")
     check(all(np.isfinite(v) for row in table.values() for v in row.values()),
           f"eval_cli --model pvrcnn2: {table}")
     return dict(timing=timing, per_batch={k: v // batches for k, v in launches.items()},
                 table=table)
+
+
+def stage2_parameters(model):
+    return {n: p for n, p in model.named_parameters() if n.split(".")[0] in STAGE2_MODULES}
+
+
+def pnets_statistics(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.startswith("pnets.") and "running_" in k}
+
+
+@contextlib.contextmanager
+def step_marks(tx, marks):
+    """Host times, each after a synchronise, at which a training step
+    enters its backward pass (``marks["backward"]``) and its optimizer
+    update (``"optimizer"``), and leaves the update (``"end"``)."""
+    backward, update = torch.Tensor.backward, tx.step
+
+    def timed_backward(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        marks["backward"] = time.perf_counter()
+        return backward(self, *args, **kwargs)
+
+    def timed_update(count):
+        torch.cuda.synchronize()
+        marks["optimizer"] = time.perf_counter()
+        update(count)
+        torch.cuda.synchronize()
+        marks["end"] = time.perf_counter()
+
+    torch.Tensor.backward, tx.step = timed_backward, timed_update
+    try:
+        yield marks
+    finally:
+        torch.Tensor.backward = backward
+        del tx.step
+
+
+def pvrcnn_training_phase(cfg, dev, expected):
+    """Phase 9a: PV-RCNN training at full width, bf16, from a fresh seeded
+    init, both modes: launches of a step, capacity counters, losses, the
+    p50 of the timed steps, peak memory; for the two-stage step a
+    synchronised split into forward (targets, forward, losses), backward
+    and optimizer; the point branch's running statistics moved, and the
+    stage-2 parameters moved (two stages) or do not exist (one)."""
+    cfg = pvrcnn_cfg(cfg)
+    batch = _to_device(kitti_like_train_batch(0, BATCH, POINTS, cfg=cfg), dev)
+    out = {}
+    for mode in PV_MODES:
+        two = mode == "pvrcnn2"
+        model, tx, state = create_pvrcnn_train_state(
+            cfg, torch.Generator().manual_seed(0), STEPS_PER_EPOCH, dev, two_stage=two)
+        step = make_pvrcnn_train_step(model, tx, cfg, train_stage2=two, seed=0)
+        stats0 = pnets_statistics(model)
+        stage2_0 = {n: p.detach().clone() for n, p in stage2_parameters(model).items()}
+        check(bool(stage2_0) == two, f"{mode}: stage-2 parameters {sorted(stage2_0)[:3]}")
+        (state, first), launches = counted(lambda: step(state, batch), expected)
+        losses = [{k: float(v) for k, v in first.items()}]
+        counters = {k: int(v) for k, v in state.diagnostics.items()}
+        times = []
+        for i in range(1, PV_TRAIN_WARMUP + PV_TRAIN_TIMED):
+            if i == PV_TRAIN_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, o = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= PV_TRAIN_WARMUP:
+                times.append(1e3 * (time.perf_counter() - t0))
+            losses.append({k: float(v) for k, v in o.items()})
+            for k, v in state.diagnostics.items():
+                counters[k] = max(counters[k], int(v))
+        peak = int(torch.cuda.max_memory_allocated())
+        split = None
+        if two:
+            marks = {}
+            with step_marks(tx, marks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, o = step(state, batch)
+            losses.append({k: float(v) for k, v in o.items()})
+            split = {"forward_ms": 1e3 * (marks["backward"] - t0),
+                     "backward_ms": 1e3 * (marks["optimizer"] - marks["backward"]),
+                     "optimizer_ms": 1e3 * (marks["end"] - marks["optimizer"])}
+        check_counters(counters, f"{mode} training")
+        check(all(np.isfinite(list(d.values())).all() for d in losses),
+              f"{mode}: non-finite loss {losses}")
+        keys = {"loss", "cls_loss", "reg_loss"} | ({"refine_cls_loss", "refine_reg_loss",
+                                                    "refine_loss", "seg_loss"} if two else set())
+        check(set(losses[0]) == keys, f"{mode}: losses {sorted(losses[0])}")
+        for name, p in model.named_parameters():
+            check(bool(torch.isfinite(p).all()), f"{mode}: non-finite parameter {name}")
+        moved = {k: float((model.state_dict()[k] - v).abs().max()) for k, v in stats0.items()}
+        check(len(moved) == 40 and min(moved.values()) > 0,
+              f"{mode}: the point branch's running statistics did not all move: {moved}")
+        s2 = stage2_parameters(model)
+        still = [n for n, p in s2.items() if torch.equal(p.detach(), stage2_0[n])]
+        check(not still, f"{mode}: stage-2 parameters that did not move: {still}")
+        check(state.step == PV_TRAIN_WARMUP + PV_TRAIN_TIMED + two, f"{mode}: step counter")
+        out[mode] = dict(launches=launches, counters=counters, losses=losses,
+                         step_ms_p50=float(np.median(times)), step_ms=times,
+                         peak_mem_bytes=peak, split=split,
+                         pnets_stat_moved_min=min(moved.values()),
+                         stage2_parameters=len(s2))
+        del model, tx, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def point_indices(record):
+    """Every keypoint sampling's and ball query's integer outputs of the
+    model, in call order, appended to ``record``."""
+    sample, query = tpvrcnn.sample_keypoints, tpointnet.ball_query
+
+    def sample_rec(*args, **kwargs):
+        kp, idx = sample(*args, **kwargs)
+        record.append(idx.cpu())
+        return kp, idx
+
+    def query_rec(*args, **kwargs):
+        idx, valid = query(*args, **kwargs)
+        record.append(torch.cat([idx, valid.long()], dim=-1).cpu())
+        return idx, valid
+
+    tpvrcnn.sample_keypoints, tpointnet.ball_query = sample_rec, query_rec
+    try:
+        yield record
+    finally:
+        tpvrcnn.sample_keypoints, tpointnet.ball_query = sample, query
+
+
+def unit_gain_stage2(model, generator):
+    """The reduction and refinement MLPs redrawn at std sqrt(2 / fan_in): at
+    their normal(0.01) init the gradient that reaches the grid pool's set
+    abstraction is ~1e-13, too small for a gate relative to its own max."""
+    with torch.no_grad():
+        for lin in list(model.roi_grid_pool.mlp.linears) + list(model.refinement.mlp.linears):
+            lin.weight.normal_(0.0, (2.0 / lin.weight.shape[1]) ** 0.5, generator=generator)
+
+
+def pvrcnn_training_reference_phase(dev):
+    """Phase 9b: small geometry, float32 (called under ``full_float32()``):
+    one step of each mode on the card (kernels) and on the CPU (plain
+    versions) from one set of weights, one batch and the step's own CPU
+    draws. The keypoint and ball-query indices must be equal; then the
+    losses, gradients, parameters and running statistics after the step
+    must agree: losses to 1e-5 relative, every gradient to 1e-4 of its
+    max (phase 6's gates), running statistics as PV_STAT_TOL, and a
+    parameter to 2e-7 + 1e-6 of its size, or by up to twice the first rate
+    where its gradient is under the gradient gate (Adam's first update is
+    lr * g / (|g| + 1e-8), whose sign is there the noise's). The CPU's
+    backward takes the card's ReLU gates (as phase 6) and the card's
+    max-pool selections: without the latter, 8 selections that differed
+    moved the grid pool's and a source's set-abstraction gradients by up
+    to 2.6e-4 of their max on an NVIDIA H100 80GB HBM3 (700.00 W)."""
+    cfg = pvrcnn_cfg(small_geometry_cfg())
+    b = kitti_like_train_batch(1, 2, 60000, max_gt=8, cfg=cfg)
+    pts, num = crop_to_grid(cfg, b["points"])
+    b["points"], b["num_points"] = pts[:, :PV_REF_POINTS], np.minimum(num, PV_REF_POINTS)
+    b["boxes"][..., 0] = np.clip(b["boxes"][..., 0], 3.0, 22.0)
+    b["boxes"][..., 1] = np.clip(b["boxes"][..., 1], -10.0, 10.0)
+    cpu = torch.device("cpu")
+    model0, _, _ = create_pvrcnn_train_state(cfg, torch.Generator().manual_seed(2),
+                                             device=cpu)
+    unit_gain_stage2(model0, torch.Generator().manual_seed(3))
+    sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    # gt boxes on two of the first pass's proposals per frame, so the
+    # refinement regression has foreground
+    anchors = torch.as_tensor(make_anchors(cfg))
+    with torch.no_grad():
+        first, _ = model0.two_stage(torch.from_numpy(b["points"]),
+                                    torch.from_numpy(b["num_points"]), anchors,
+                                    generator=torch.Generator().manual_seed(0))
+    props = first["proposals"].numpy()
+    far = np.linalg.norm(props[:, :, :2] - props[:, :1, :2], axis=-1) > 5.0
+    for i in range(2):      # the top proposal and the first one 5 m from it
+        b["boxes"][i, :2] = props[i, [0, int(far[i].argmax())]]
+    b["boxes"][:, :2, :3] += 0.05
+    b["boxes"][:, :2, 6] += 0.05      # no yaw residual at the codec's wrap
+    b["class_idx"][:, :2] = 0
+    b["gt_mask"][:, :2] = True
+    spe = 10
+    lr = make_lr_schedule(cfg, spe)(0)
+    out = {}
+    with torch.backends.mkldnn.flags(enabled=False):
+        for mode in PV_MODES:
+            two = mode == "pvrcnn2"
+            runs, relus, maxes = [], [], []
+            sd_mode = {k: v for k, v in sd.items()
+                       if two or k.split(".")[0] not in STAGE2_MODULES}
+            for d in (dev, cpu):
+                model, tx, state = create_pvrcnn_train_state(
+                    cfg, steps_per_epoch=spe, device=d, state_dict=sd_mode, two_stage=two)
+                step = make_pvrcnn_train_step(model, tx, cfg, train_stage2=two, seed=0)
+                grads, update = {}, tx.step
+
+                def grab_then_update(count, model=model, grads=grads, update=update):
+                    grads.update({n: p.grad.detach().cpu() for n, p in
+                                  model.named_parameters() if p.grad is not None})
+                    update(count)
+
+                tx.step = grab_then_update
+                zw.reset_launches()
+                with relu_gates(relus, replay=bool(runs)) as differ, \
+                        max_gates(maxes, replay=bool(runs)) as max_differ, \
+                        point_indices([]) as indices:
+                    state, losses = step(state, _to_device(b, d))
+                want = ({} if d.type == "cpu" else
+                        {"gather_gemm": 27, "gather_gemm.fma": 27, "gather_rows": 14})
+                launched = {k: n for k, n in zw.LAUNCHES.items() if n}
+                check(launched == want, f"{mode} reference on {d.type}: launches {launched}")
+                runs.append(dict(
+                    losses={k: float(v) for k, v in losses.items()}, grads=grads,
+                    sd={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    indices=indices, differ=sum(differ), calls=len(differ),
+                    max_differ=sum(max_differ), max_calls=len(max_differ),
+                    counters={k: int(v) for k, v in state.diagnostics.items()}))
+            g, c = runs
+            check(len(g["indices"]) == len(c["indices"]) == (13 if two else 11),
+                  f"{mode}: {len(g['indices'])} index sets recorded")
+            check(all(torch.equal(x, y) for x, y in zip(g["indices"], c["indices"])),
+                  f"{mode}: keypoint or ball-query indices differ between card and CPU")
+            check(g["counters"] == c["counters"], f"{mode}: counters {g['counters']} "
+                                                  f"vs {c['counters']}")
+            n_gates = sum(x.numel() for x in relus)
+            check(c["calls"] == len(relus) == (49 if two else 41),
+                  f"{mode}: {len(relus)} ReLUs recorded, {c['calls']} replayed")
+            check(c["differ"] <= 1e-5 * n_gates, f"{mode}: {c['differ']} of {n_gates} "
+                                                 f"ReLU gates differ")
+            n_sel = sum(x.numel() for x in maxes)
+            check(c["max_calls"] == len(maxes) == (12 if two else 0)
+                  and c["max_differ"] <= 1e-5 * n_sel,
+                  f"{mode}: {len(maxes)} max-pools recorded, {c['max_calls']} replayed, "
+                  f"{c['max_differ']} of {n_sel} selections differ")
+            loss_rel = {k: abs(g["losses"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in c["losses"].items()}
+            check(max(loss_rel.values()) <= 1e-5, f"{mode}: losses {g['losses']} vs "
+                                                  f"{c['losses']}")
+            check(set(g["grads"]) == set(c["grads"]), f"{mode}: gradients of other parameters")
+            rels = {n: float((g["grads"][n] - x).abs().max()) / max(float(x.abs().max()), 1e-30)
+                    for n, x in c["grads"].items()}
+            worst = max(rels, key=rels.get)
+            check(rels[worst] <= 1e-4, f"{mode}: gradient of {worst} differs by "
+                                       f"{rels[worst]} of its max")
+            stat_err = max(float(((g["sd"][k] - x).abs() / (1 + x.abs())).max())
+                           for k, x in c["sd"].items() if "running_" in k)
+            check(stat_err <= PV_STAT_TOL, f"{mode}: running statistics differ by {stat_err}")
+            param_err, floor_hits = 0.0, 0
+            for n, x in c["sd"].items():
+                if "running_" in n or "num_batches" in n:
+                    continue
+                gr = c["grads"].get(n)
+                noisy = (gr.abs() <= 1e-4 * gr.abs().max() if gr is not None
+                         else torch.zeros_like(x, dtype=torch.bool))
+                slack = torch.where(noisy, 2 * lr, 0.0)
+                err = (g["sd"][n] - x).abs()
+                check(bool((err <= 2e-7 + 1e-6 * x.abs() + slack).all()),
+                      f"{mode}: parameter {n} differs by {float(err.max())}")
+                param_err = max(param_err, float((err - slack).clamp(min=0).max()))
+                floor_hits += int(noisy.sum())
+            out[mode] = dict(losses_cpu=c["losses"], loss_rel_max=max(loss_rel.values()),
+                             index_sets=len(c["indices"]), worst_grad=worst,
+                             worst_grad_rel=rels[worst], stat_err=stat_err, param_err=param_err,
+                             params_at_noise_floor=floor_hits, relu_gates=n_gates,
+                             gates_that_differed=c["differ"],
+                             max_selections_that_differed=c["max_differ"],
+                             counters=c["counters"])
+    return out
+
+
+def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
+    """Phase 9c: train_cli --model pvrcnn and --model pvrcnn2 for one epoch
+    on phase 7's 16 synthetic train frames, then eval_cli --ckpt of each
+    checkpoint as its own model, in the yaml's float32."""
+    from vision3d_tpu_torch import eval_cli, train_cli
+
+    golden = json.loads(GOLDEN.read_text())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        val, data = synthetic_set(tmp, golden)
+        steps = 16 // BATCH
+        want_step = {"gather_rows": sum(r["launches_per_step"] for r in gr_rows) * steps,
+                     **launches_at("gather_gemm", gg_rows, "launches_per_step",
+                                   torch.float32, steps)}
+        batches = -(-len(val) // BATCH)
+        want_eval = launches_at("zwin_conv", shapes, "launches_per_forward",
+                                torch.float32, batches)
+        for mode in PV_MODES:
+            recs, launches = counted(lambda: train_cli.main(
+                data + ["--model", mode, "--batch-size", str(BATCH), "--workers", "2",
+                        "--epochs", "1", "--ckpt-dir", str(tmp / f"ck_{mode}"),
+                        "--metrics-jsonl", str(tmp / f"{mode}.jsonl")]), want_step)
+            check(len(recs) == 1 and recs[0]["steps"] == steps
+                  and all(np.isfinite(recs[0]["losses"])), f"train_cli {mode}: {recs}")
+            ckpt = recs[0]["checkpoint"]
+            check(ckpt and Path(ckpt).is_file(), f"train_cli {mode}: no checkpoint")
+            (table, timing), elaunch = counted(lambda: eval_cli.main(
+                data + ["--model", mode, "--ckpt", ckpt,
+                        "--out-json", str(tmp / f"ap_{mode}.json")]), want_eval)
+            check(timing["frames"] == len(val), f"eval_cli {mode}: {timing['frames']} frames")
+            check(all(np.isfinite(v) for row in table.values() for v in row.values()),
+                  f"eval_cli {mode} --ckpt: {table}")
+            out[mode] = dict(train={k: recs[0][k] for k in ("seconds", "frames_per_s",
+                                                            "host_wait_s", "losses")},
+                             train_per_step={k: v // steps for k, v in launches.items()},
+                             eval=timing, eval_per_batch={k: v // batches
+                                                          for k, v in elaunch.items()},
+                             table=table)
+    return out
 
 
 def main():
@@ -1555,6 +1947,40 @@ def main():
           f"{pvcli['table']}", flush=True)
     del pvref
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvt = pvrcnn_training_phase(cfg, dev, expected)
+    for mode, r in pvt.items():
+        print(f"{mode} training (batch {BATCH} x {POINTS} points, bf16, seeded init): "
+              f"{PV_TRAIN_TIMED} timed steps, p50 {r['step_ms_p50']:.2f} ms "
+              f"({[round(t, 2) for t in r['step_ms']]}), peak mem "
+              f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, launches per step {r['launches']}, "
+              f"counters {r['counters']}, smallest move of a pnets_* statistic "
+              f"{r['pnets_stat_moved_min']:.3g}, stage-2 parameters {r['stage2_parameters']}",
+              flush=True)
+        print(f"{mode} training losses: "
+              + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in d.items()) for d in r["losses"]),
+              flush=True)
+    print("pvrcnn2 training step split (ms, host clock, synchronised): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in pvt["pvrcnn2"]["split"].items()), flush=True)
+    with full_float32():
+        pvtref = pvrcnn_training_reference_phase(dev)
+    for mode, r in pvtref.items():
+        print(f"{mode} training reference (card vs CPU, f32, small geometry): {r}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvtcli = pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows)
+    for mode, r in pvtcli.items():
+        t = r["train"]
+        print(f"train_cli --model {mode} (float32, 16 frames, batch {BATCH}, 2 loader "
+              f"processes): {t['seconds']:.2f} s, {t['frames_per_s']:.2f} frames/s, host "
+              f"wait {t['host_wait_s']:.2f} s ({t['host_wait_s'] / t['seconds']:.1%}), "
+              f"losses {[round(x, 4) for x in t['losses']]}, launches per step "
+              f"{r['train_per_step']}; eval_cli --model {mode} --ckpt: "
+              f"{r['eval']['frames']} frames in {r['eval']['seconds']:.2f} s "
+              f"({r['eval']['frames'] / r['eval']['seconds']:.2f} frames/s), launches per "
+              f"batch {r['eval_per_batch']}, AP (untrained, no gate) {r['table']}", flush=True)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1602,6 +2028,13 @@ def main():
                                for r in kernels.ROUTES["gather_gemm"]},
          "launches_train_cli_per_step": {k: v for k, v in per_step.items()
                                          if k.startswith("gather_gemm")},
+         # PV-RCNN training (phase 9): per step of each mode, bf16 and the CLI's float32
+         "launches_pvrcnn_train_per_step": {
+             m: {k: v for k, v in r["launches"].items() if k.startswith("gather_gemm")}
+             for m, r in pvt.items()},
+         "launches_train_cli_pvrcnn_per_step": {
+             m: {k: v for k, v in r["train_per_step"].items() if k.startswith("gather_gemm")}
+             for m, r in pvtcli.items()},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies
@@ -1616,6 +2049,10 @@ def main():
                      "vision3d_tpu/ops/pallas/dma_gather.py:29",
          "launches": train["launches"]["gather_rows"],
          "launches_train_cli_per_step": per_step["gather_rows"],
+         "launches_pvrcnn_train_per_step": {m: r["launches"]["gather_rows"]
+                                            for m, r in pvt.items()},
+         "launches_train_cli_pvrcnn_per_step": {m: r["train_per_step"]["gather_rows"]
+                                                for m, r in pvtcli.items()},
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gr_rows),
          "ms": per(gr_rows, "bf16_ms"), "plain_ms": per(gr_rows, "bf16_plain_ms"),
          "bound_ms": per(gr_rows, "bf16_bound_ms"), "bound_by": bound_by(gr_rows),

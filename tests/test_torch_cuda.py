@@ -1,7 +1,7 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
 column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
-versions, on the card, and PV-RCNN's inference on the card against the
-CPU. Every test here needs a CUDA device and skips without one. This
+versions, on the card, and PV-RCNN's inference and training on the card
+against the CPU. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -750,3 +750,23 @@ def test_pvrcnn_card_matches_cpu(cuda_device):
         out = chip_smoke.pvrcnn_reference_phase(cuda_device)
     assert out["keypoints_equal"] and out["ball_query_equal"]
     assert out["ball_queries"] == 10 and out["detections"]["n_a"] > 0
+
+
+def test_pvrcnn_training_card_matches_cpu(cuda_device):
+    """One PV-RCNN training step of each mode at small geometry, float32
+    with TF32 off, card against CPU on one set of weights and batch
+    (``chip_smoke.py`` phase 9b, which raises on any difference): keypoint
+    and ball-query indices equal, losses to 1e-5 relative, gradients to
+    1e-4 of their max on the card's ReLU gates, running statistics and
+    parameters after the step within phase 9b's bounds, 27 gather_gemm (all
+    on the FMA route) and 14 gather_rows launches on the card."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    with chip_smoke.full_float32():
+        out = chip_smoke.pvrcnn_training_reference_phase(cuda_device)
+    assert out["pvrcnn"]["index_sets"] == 11 and out["pvrcnn2"]["index_sets"] == 13
+    assert out["pvrcnn2"]["losses_cpu"]["refine_reg_loss"] > 0

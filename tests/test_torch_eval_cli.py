@@ -305,15 +305,13 @@ def test_bev_drawer_matches_jax(monkeypatch):
 
 
 def test_clis_refuse_what_is_not_ported(trained, tmp_path):
-    """PV-RCNN training and dense late training stages are not ported;
-    eval_cli runs PV-RCNN (tests/test_torch_pvrcnn.py) but refuses to load
-    SECOND's weights into it."""
+    """Dense late training stages are not ported; eval_cli runs PV-RCNN
+    (tests/test_torch_pvrcnn.py) but refuses to load SECOND's weights into
+    it. (PV-RCNN training is ported: tests/test_torch_pvrcnn_train.py.)"""
     yml = str(trained[0])
     with pytest.raises(ValueError, match="not a PV-RCNN"):
         eval_cli.main(["--config", yml, "--model", "pvrcnn", "--weights", str(WEIGHTS),
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_cli.main(["--config", yml, "--model", "pvrcnn2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="dense late stages"):
         train_cli.main(["--config", yml, "--dense-from", "2", "--batch-size", "2",
                         "--workers", "0", "--epochs", "1", "--ckpt-dir", str(tmp_path),

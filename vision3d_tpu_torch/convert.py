@@ -11,7 +11,8 @@ renames plus the 2D conv transposes (HWIO -> OIHW) and, for PV-RCNN's
 Dense layers, the (in, out) -> (out, in) transposes of ``nn.Linear``.
 ``flax_from_state_dict`` is the inverse map. Adam's moments are trees
 shaped like the parameters, so ``opt_state_from_optax`` /
-``optax_from_opt_state`` carry them through the same renames.
+``optax_from_opt_state`` carry them through the same renames; both take
+SECOND's trees and PV-RCNN's of either stage.
 """
 
 import re
@@ -213,8 +214,17 @@ def opt_state_from_optax(mu, nu, count, model) -> dict:
 
 def optax_from_opt_state(state, model):
     """The inverse: Adam's per-parameter ``state`` (indexed in
-    ``model.parameters()`` order) -> (mu tree, nu tree, count)."""
-    names = [name for name, _ in model.named_parameters()]
-    mu = flax_from_state_dict({n: state[i]["exp_avg"] for i, n in enumerate(names)})
-    nu = flax_from_state_dict({n: state[i]["exp_avg_sq"] for i, n in enumerate(names)})
-    return mu["params"], nu["params"], int(state[0]["step"])
+    ``model.parameters()`` order) -> (mu tree, nu tree, count). A parameter
+    that has never had a gradient has no entry (``torch.optim.Adam`` skips
+    it; stage-1 PV-RCNN training leaves the point branch so): its moments
+    are zeros, as optax's after zero gradients, and the count is the
+    step of the parameters that have one."""
+    named = list(model.named_parameters())
+
+    def moment(key):
+        return {n: state[i][key] if i in state else torch.zeros_like(p)
+                for i, (n, p) in enumerate(named)}
+
+    count = max((int(s["step"]) for s in state.values()), default=0)
+    return (flax_from_state_dict(moment("exp_avg"))["params"],
+            flax_from_state_dict(moment("exp_avg_sq"))["params"], count)

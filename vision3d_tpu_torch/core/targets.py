@@ -1,5 +1,6 @@
 """Proposal target assignment, anchors vs ground truth (port of
-``vision3d_tpu/core/targets.py:40-117``).
+``vision3d_tpu/core/targets.py:40-117``), and PV-RCNN's keypoint-radius
+targets (``:149-225``).
 
 Per class: rotated BEV IoU of that class's gt boxes against the class's
 anchor grid; anchors stratified into {background 0, ignore -1, positive
@@ -8,6 +9,10 @@ per gt rescued (``allow_low_quality_matches``); the per-box ignore mask
 applied; then classification targets (ignore -> mask) and VoxelNet-encoded
 regression targets at positive sites. With no gt of a class every anchor is
 background. ``subsample_labels`` (unused by the models) is not ported.
+
+Keypoint targets: a keypoint within its class's ``radius`` of a gt centre
+is a positive of that class; one-hot class targets carry a background and
+an ignore channel.
 """
 
 from typing import NamedTuple
@@ -17,6 +22,7 @@ import torch
 from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.core.boxes import encode
 from vision3d_tpu_torch.core.iou import pairwise_rotated_iou_chunked
+from vision3d_tpu_torch.ops.fps import squared_distance
 
 _BEV_COLS = [0, 1, 3, 4, 6]
 
@@ -107,3 +113,61 @@ def assign_targets(boxes, class_idx, gt_mask, box_ignore, anchors,
     t = assign_targets_batch(boxes[None], class_idx[None], gt_mask[None],
                              box_ignore[None], anchors, cfg, iou_chunk)
     return Targets(*(x[0] for x in t))
+
+
+def assign_refinement_targets_keypoints(neg, keypoints, gt_boxes, gt_class,
+                                        gt_mask, cfg: Config):
+    """``vision3d_tpu/core/targets.py:149``, batched over B. Every keypoint
+    starts as ignore; the ``neg`` keypoints (B, refinement_num_negatives)
+    indices, JAX's ``randint`` draws) become background; a keypoint within
+    the ``radius`` of exactly one class's gt centres becomes a positive of
+    that class, one within several classes' falls back to background.
+    Regression targets at the positives: (gt centre - keypoint, size
+    residual against the class's anchor ``wlh``, gt yaw) of the nearest
+    in-radius gt of that class (the lowest index among ties).
+
+    keypoints (B, K, 3), gt_boxes (B, G, 7), gt_class (B, G), gt_mask (B, G)
+    -> (cls_targets (B, K, n_cls + 2) one-hot float, reg_targets (B, K,
+    n_cls, 7)). The distance is rounded as XLA's CPU code fuses
+    ``jnp.linalg.norm`` (``ops.fps.squared_distance``), so the radius
+    tests equal JAX's."""
+    n_cls = cfg.num_classes
+    bsz, k = keypoints.shape[:2]
+    g = gt_boxes.shape[1]
+    dev = keypoints.device
+    radii = torch.tensor([a.radius for a in cfg.anchors[:n_cls]],
+                         dtype=torch.float32, device=dev)
+    sizes = torch.tensor([a.wlh for a in cfg.anchors[:n_cls]],
+                         dtype=torch.float32, device=dev)
+    cls = gt_class.long()
+
+    d = torch.sqrt(squared_distance(keypoints[:, :, None, :],
+                                    gt_boxes[:, None, :, 0:3]))         # (B, K, G)
+    in_radius = (d < radii[cls][:, None, :]) & gt_mask[:, None, :]
+    onehot = cls[..., None] == torch.arange(n_cls, device=dev)          # (B, G, n_cls)
+    per_cls = (in_radius[..., None] & onehot[:, None]).any(dim=2)       # (B, K, n_cls)
+
+    cls_t = torch.zeros((bsz, k, n_cls + 2), device=dev)
+    cls_t[..., -1] = 1.0
+    bidx = torch.arange(bsz, device=dev)[:, None]
+    cls_t[bidx, neg.long(), -2] = 1.0
+    cls_t[bidx, neg.long(), -1] = 0.0
+    n_hit = per_cls.sum(dim=2)
+    pos_row = torch.cat([per_cls.float(), torch.zeros((bsz, k, 2), device=dev)], dim=-1)
+    cls_t = torch.where((n_hit == 1)[..., None], pos_row, cls_t)
+    bg_row = torch.zeros(n_cls + 2, device=dev)
+    bg_row[-2] = 1.0
+    cls_t = torch.where((n_hit > 1)[..., None], bg_row, cls_t)
+
+    # the nearest in-radius gt of each class, per keypoint
+    d_cls = torch.where(onehot.permute(0, 2, 1)[:, :, None, :] & in_radius[:, None],
+                        d[:, None], float("inf"))                       # (B, n_cls, K, G)
+    is_min = d_cls == d_cls.amin(dim=-1, keepdim=True)
+    g_idx = torch.where(is_min, torch.arange(g, device=dev), g).amin(dim=-1)
+    gt_sel = torch.gather(gt_boxes[:, None].expand(-1, n_cls, -1, -1), 2,
+                          g_idx[..., None].expand(-1, -1, -1, gt_boxes.shape[-1]))
+    size = sizes[None, :, None, :]
+    reg = torch.cat([gt_sel[..., 0:3] - keypoints[:, None],
+                     (gt_sel[..., 3:6] - size) / size, gt_sel[..., 6:7]], dim=-1)
+    reg = torch.where(per_cls.permute(0, 2, 1)[..., None], reg, 0.0)
+    return cls_t, reg.permute(0, 2, 1, 3)

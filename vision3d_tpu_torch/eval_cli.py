@@ -13,7 +13,10 @@ PV-RCNN over a split and report the official-protocol 3D AP@R40 table
 weights (``init_pvrcnn`` from a CPU generator seeded 0, as the JAX CLI
 evaluates a ``PRNGKey(0)`` init). ``--weights`` for PV-RCNN must hold a
 PV-RCNN tree: SECOND's raises. ``--model pvrcnn`` runs the one-stage
-inference (the BEV branch), ``pvrcnn2`` the two-stage inference with its
+inference (the BEV branch) of the model the weights hold (a stage-1 tree,
+as ``train_cli --model pvrcnn`` writes, or a two-stage one; the fresh
+init is stage 1's, as the JAX CLI's), ``pvrcnn2`` the two-stage inference,
+which a stage-1 tree cannot run (it raises), with its
 grid points drawn from a CPU generator re-seeded 0 for every batch (the
 JAX CLI passes ``PRNGKey(0)`` to every batch), so the CPU and the card
 draw the same. Inference runs under ``torch.no_grad()`` in the config's
@@ -136,14 +139,16 @@ def main(argv=None):
                                        state_dict=load_state_dict(args))
     else:
         from vision3d_tpu_torch import convert
-        from vision3d_tpu_torch.models.pvrcnn import create_pvrcnn
+        from vision3d_tpu_torch.models.pvrcnn import create_pvrcnn, has_stage2
 
         sd = None
         if args.ckpt:
             sd = load_state_dict(args)
         elif args.weights:
             sd = convert.pvrcnn_state_dict_from_flax(convert.load_npz(args.weights))
-        model, anchors = create_pvrcnn(cfg, device=device, state_dict=sd)
+        two_stage = args.model == "pvrcnn2" or (sd is not None and has_stage2(sd))
+        model, anchors = create_pvrcnn(cfg, device=device, state_dict=sd,
+                                       two_stage=two_stage)
     table, timing = run_eval(cfg, model, anchors, dataset, args.batch_size,
                              model_kind=args.model)
     if args.out_json:

@@ -5,9 +5,13 @@ Per radius r_i with group size s_i: the first s_i in-ball source points of
 each centre (``ops/ball_query.py``), [xyz - centre ++ feats], a shared
 per-point MLP (Linear without bias, masked batch norm eps 1e-5 / momentum
 0.1 in torch's convention (flax 0.9), ReLU), and a max over the group
-that writes 0 for an empty ball; the scales are concatenated. The Linear
-layers run in float32 whatever the model's compute dtype (the JAX Dense
-layers carry no dtype); on the card they are cuBLAS GEMMs.
+that writes 0 for an empty ball; the scales are concatenated. The max is
+``amax``, whose gradient splits evenly among tied maxima, as JAX's
+``reduce_max`` does: the ball query pads a group with copies of its first
+point, so ties are the rule. The ball query runs without gradient: it
+gives indices only. The Linear layers run in float32 whatever the model's
+compute dtype (the JAX Dense layers carry no dtype); on the card they are
+cuBLAS GEMMs.
 """
 
 import torch
@@ -52,7 +56,8 @@ class SetAbstractionMSG(nn.Module):
         centers (B, M, 3) -> (B, M, sum of the output widths)."""
         outs = []
         for r, s, mlp in zip(self.radii, self.nsamples, self.mlps):
-            idx, valid = ball_query(src_xyz, src_mask, centers, r, s)
+            with torch.no_grad():
+                idx, valid = ball_query(src_xyz, src_mask, centers, r, s)
             g = group_features(src_xyz, src_feats, idx, valid, centers)
             h = mlp(g, valid)
             pooled = torch.where(valid[..., None], h, float("-inf")).amax(dim=2)

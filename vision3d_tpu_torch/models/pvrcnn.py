@@ -1,4 +1,4 @@
-"""PV-RCNN point-voxel detector, inference (port of
+"""PV-RCNN point-voxel detector, inference and training forward (port of
 ``vision3d_tpu/models/pvrcnn.py``).
 
 Stage 1 samples ``num_keypoints`` FPS keypoints from the raw cloud, runs
@@ -8,14 +8,24 @@ points with their intensity, then the voxel scales at strides 1, 2, 4, 8)
 by multi-scale set abstraction, and samples the RPN's BEV map bilinearly
 at the keypoints. Stage 2 weights each keypoint's features by its
 foreground probability (the keypoint-segmentation head), pools them on a
-grid inside each stage-1 proposal and refines the proposals.
+grid inside each stage-1 proposal and refines the proposals. A model built
+with ``two_stage=False`` has no stage-2 modules, as the JAX package's
+``create_pvrcnn(two_stage=False)`` tree has none (the tree that
+``train_cli --model pvrcnn`` trains).
+
+FPS keypoints and ball-query indices are computed without gradient; every
+float path of the JAX model carries it (the JAX package stops no
+gradient): the point branch back into the stage outputs and the RPN, the
+grid points back into the proposals' deltas.
 
 Everything but the middle extractor's sparse convs (the ``zwin_conv`` CUDA
-kernel) is plain PyTorch: FPS, ball query and grouping are XLA code in the
+kernel in inference, ``gather_gemm`` and ``gather_rows`` in training) is
+plain PyTorch: FPS, ball query and grouping are XLA code in the
 JAX package, and the shared MLPs are cuBLAS GEMMs. Voxel backend only:
 the scales of the column backend are not ported.
 """
 
+import contextlib
 import math
 
 import torch
@@ -60,14 +70,27 @@ def point_mask(points, num_points):
             < num_points[:, None])
 
 
+STAGE2_MODULES = ("roi_grid_pool", "refinement", "keypoint_seg")
+
+
+def has_stage2(state_dict) -> bool:
+    """Whether a PV_RCNN state_dict holds the stage-2 modules."""
+    return any(k.split(".", 1)[0] in STAGE2_MODULES for k in state_dict)
+
+
 class PV_RCNN(Second):
     """SECOND's trunk (``cnn``, ``rpn``, ``head``) plus the point branch
-    (``pnets``), RoI grid pooling, refinement and keypoint segmentation.
-    ``forward`` and ``inference`` are SECOND's: they run the BEV branch
-    alone, which is all that XLA keeps of the JAX model's ``__call__``
-    under ``jit`` (the keypoints and set abstraction feed no output)."""
+    (``pnets``) and, with ``two_stage``, RoI grid pooling, refinement and
+    keypoint segmentation (``STAGE2_MODULES``). In eval mode ``forward``
+    and ``inference`` are SECOND's: they run the BEV branch alone, which
+    is all that XLA keeps of the JAX model's ``__call__`` under ``jit``
+    (the keypoints and set abstraction feed no output). In training mode
+    ``forward`` runs all of ``stage1``, as the JAX training step applies
+    ``__call__`` with mutable batch statistics: the point branch's outputs
+    reach no loss, so it runs without gradient, but its batch norms take
+    the batch's statistics."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, two_stage: bool = True):
         if cfg.sparse_backend != "voxel":
             raise NotImplementedError(
                 "PV-RCNN on the column backend is not ported (ROADMAP A16)")
@@ -76,25 +99,41 @@ class PV_RCNN(Second):
             SetAbstractionMSG(m[0][0], cfg.psa.radii[i], cfg.samples_pn,
                               [w[1:] for w in m])
             for i, m in enumerate(cfg.psa.mlps))
-        self.roi_grid_pool = RoiGridPool(cfg)
-        self.refinement = RefinementLayer(cfg)
-        self.keypoint_seg = nn.Linear(cfg.gridpool.mlps_pn[0][0],
-                                      cfg.num_classes + 1)
+        self.has_stage2 = two_stage
+        if two_stage:
+            self.roi_grid_pool = RoiGridPool(cfg)
+            self.refinement = RefinementLayer(cfg)
+            self.keypoint_seg = nn.Linear(cfg.gridpool.mlps_pn[0][0],
+                                          cfg.num_classes + 1)
 
-    def stage1(self, points, num_points):
+    def stage1(self, points, num_points, point_grad: bool = True):
         """Returns (keypoints (B, K, 3), point_features (B, K, 384 + BEV
-        width), cls_map, reg_map, diag)."""
+        width), cls_map, reg_map, diag). ``point_grad=False`` runs the set
+        abstraction and the BEV gather without gradient."""
         cfg = self.cfg
         mask = point_mask(points, num_points)
-        keypoints, _ = sample_keypoints(points[..., :3], mask, cfg.num_keypoints)
+        with torch.no_grad():
+            keypoints, _ = sample_keypoints(points[..., :3], mask, cfg.num_keypoints)
         x, cls_map, reg_map, diag, scales = self.trunk(points, num_points,
                                                        need_scales=True)
-        sources = [(points[..., :3], points[..., 3:4], mask)]
-        sources += [to_global(s, cfg, stride) for s, stride in zip(scales, cfg.strides)]
-        feats = [pnet(xyz, f, m, keypoints)
-                 for pnet, (xyz, f, m) in zip(self.pnets, sources)]
-        feats.append(bev_bilinear_gather(x.permute(0, 2, 3, 1), keypoints[..., :2], cfg))
-        return keypoints, torch.cat(feats, dim=-1), cls_map, reg_map, diag
+        with contextlib.nullcontext() if point_grad else torch.no_grad():
+            sources = [(points[..., :3], points[..., 3:4], mask)]
+            sources += [to_global(s, cfg, stride)
+                        for s, stride in zip(scales, cfg.strides)]
+            feats = [pnet(xyz, f, m, keypoints)
+                     for pnet, (xyz, f, m) in zip(self.pnets, sources)]
+            feats.append(bev_bilinear_gather(x.permute(0, 2, 3, 1),
+                                             keypoints[..., :2], cfg))
+            point_features = torch.cat(feats, dim=-1)
+        return keypoints, point_features, cls_map, reg_map, diag
+
+    def forward(self, points, num_points):
+        """points (B, P, C), num_points (B,) -> (cls_map, reg_map, diag)."""
+        if not self.training:
+            return super().forward(points, num_points)
+        _, _, cls_map, reg_map, diag = self.stage1(points, num_points,
+                                                   point_grad=False)
+        return cls_map, reg_map, diag
 
     def two_stage(self, points, num_points, anchors, generator=None, u=None):
         """Stage-1 proposals pooled on keypoint features and refined.
@@ -102,6 +141,9 @@ class PV_RCNN(Second):
         ``refinement.sample_gridpoints`` takes them. Returns (dict of the
         stage-1 maps, keypoints, point features, proposals, their scores,
         refined deltas, confidence and segmentation logits; diag)."""
+        if not self.has_stage2:
+            raise ValueError("this PV_RCNN was built with two_stage=False: it has "
+                             f"no stage-2 modules ({', '.join(STAGE2_MODULES)})")
         cfg = self.cfg
         keypoints, point_features, cls_map, reg_map, diag = self.stage1(
             points, num_points)
@@ -146,7 +188,9 @@ def init_pvrcnn(model: PV_RCNN, generator: torch.Generator):
     normal(0.01), biases 0; the keypoint-segmentation Linear flax's
     ``lecun_normal``, a normal cut at two of its own std and widened so
     the std stays sqrt(1/in) (every weight within 2.2737 std), bias 0;
-    batch norms scale 1 / bias 0 / mean 0 / var 1."""
+    batch norms scale 1 / bias 0 / mean 0 / var 1. The stage-2 modules are
+    drawn last, so a model with ``two_stage=False`` gets the same trunk and
+    point branch from the same seed."""
     init_second(model, generator)
     with torch.no_grad():
         for mod in model.modules():
@@ -154,6 +198,8 @@ def init_pvrcnn(model: PV_RCNN, generator: torch.Generator):
                 for lin in mod.linears:
                     lin.weight.normal_(0.0, math.sqrt(2.0 / lin.weight.shape[0]),
                                        generator=generator)
+        if not model.has_stage2:
+            return model
         for lin in (list(model.roi_grid_pool.mlp.linears)
                     + list(model.refinement.mlp.linears) + [model.refinement.out]):
             lin.weight.normal_(0.0, 0.01, generator=generator)
@@ -166,12 +212,20 @@ def init_pvrcnn(model: PV_RCNN, generator: torch.Generator):
     return model
 
 
-def create_pvrcnn(cfg: Config, device="cuda", state_dict=None):
+def create_pvrcnn(cfg: Config, device="cuda", state_dict=None,
+                  two_stage: bool = True):
     """An eval-mode PV_RCNN on ``device`` and its anchor tensor: weights
     from ``state_dict`` (``convert.py`` or a ``train_cli`` checkpoint),
     loaded strictly, else fresh from ``init_pvrcnn`` with a CPU generator
-    seeded 0 (the JAX CLI's ``PRNGKey(0)`` init)."""
-    model = PV_RCNN(cfg)
+    seeded 0 (the JAX CLI's ``PRNGKey(0)`` init). ``two_stage=False``
+    builds the stage-1 model; a two-stage model asked of a stage-1
+    ``state_dict`` raises, naming the missing modules."""
+    if two_stage and state_dict is not None and not has_stage2(state_dict):
+        raise ValueError(
+            "a two-stage PV-RCNN needs the stage-2 modules "
+            f"({', '.join(STAGE2_MODULES)}); these weights are a stage-1 tree "
+            "(train_cli --model pvrcnn): evaluate them with --model pvrcnn")
+    model = PV_RCNN(cfg, two_stage=two_stage)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     else:
@@ -181,5 +235,5 @@ def create_pvrcnn(cfg: Config, device="cuda", state_dict=None):
     return model, anchors
 
 
-__all__ = ["Detections", "PV_RCNN", "bev_bilinear_gather", "create_pvrcnn",
-           "init_pvrcnn"]
+__all__ = ["Detections", "PV_RCNN", "STAGE2_MODULES", "bev_bilinear_gather",
+           "create_pvrcnn", "has_stage2", "init_pvrcnn"]

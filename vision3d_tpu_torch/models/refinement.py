@@ -1,6 +1,5 @@
-"""PV-RCNN stage 2 for inference: RoI grid pooling and box refinement
-(port of ``vision3d_tpu/models/refinement.py`` without
-``refinement_loss``).
+"""PV-RCNN stage 2: RoI grid pooling, box refinement and its loss (port
+of ``vision3d_tpu/models/refinement.py``).
 
 ``RoiGridPool`` draws ``num_gridpoints`` uniform points inside each
 proposal box (in the box frame, rotated by its yaw), gathers keypoint
@@ -9,6 +8,8 @@ concatenated grid-point features with an MLP. ``RefinementLayer`` is an
 MLP then a Linear to box deltas + a confidence logit; the deltas decode
 against the proposal as the anchor (``apply_refinements``).
 ``refine_topk`` ranks refined boxes by confidence without NMS.
+``refinement_loss`` is the confidence BCE plus smooth-L1 on the encoded
+residuals of foreground proposals.
 """
 
 import torch
@@ -16,8 +17,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision3d_tpu_torch.config import Config
-from vision3d_tpu_torch.core.boxes import decode
+from vision3d_tpu_torch.core.boxes import decode, encode
+from vision3d_tpu_torch.core.iou import pairwise_rotated_iou
+from vision3d_tpu_torch.models.losses import smooth_l1
 from vision3d_tpu_torch.models.pointnet import SetAbstractionMSG
+
+_BEV_COLS = [0, 1, 3, 4, 6]
 
 
 class MLP(nn.Module):
@@ -102,3 +107,45 @@ def refine_topk(boxes, scores, k: int):
     sc, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     sc, idx = sc[:, :k], idx[:, :k]
     return torch.gather(boxes, 1, idx[..., None].expand(-1, -1, boxes.shape[-1])), sc, idx
+
+
+def refinement_loss(box_deltas, score_logits, proposals, proposal_valid,
+                    gt_boxes, gt_mask, cfg: Config, fg_iou: float = 0.55):
+    """Confidence BCE over the valid proposals plus smooth-L1 on
+    ``encode(matched gt, proposal)`` over the foreground ones, as
+    ``vision3d_tpu/models/refinement.py:129``: each proposal matches its
+    highest rotated-BEV-IoU gt (``cfg.iou_angle_mode``, the lowest index
+    among ties, as ``jnp.argmax``) and is foreground at IoU >= ``fg_iou``;
+    each term is normalised by its count clamped to 1. box_deltas (B, N,
+    7), score_logits (B, N), proposals (B, N, 7), proposal_valid (B, N),
+    gt_boxes (B, G, 7), gt_mask (B, G) -> dict(refine_cls_loss,
+    refine_reg_loss, refine_loss).
+
+    The match takes no gradient (a comparison in JAX too); the target
+    carries it into the proposals. One difference, where JAX's gradient
+    is not finite: a background proposal's residual is taken against the
+    proposal itself, not its matched gt. The term is masked out either
+    way, so the loss and its gradients are JAX's wherever those are
+    finite; but in a frame with no gt JAX matches a zero-size padding box,
+    whose log-size residual is -inf, and the gradient of the masked term
+    is NaN in every parameter."""
+    g = gt_boxes.shape[1]
+    with torch.no_grad():
+        iou = pairwise_rotated_iou(proposals[..., _BEV_COLS], gt_boxes[..., _BEV_COLS],
+                                   cfg.iou_angle_mode)               # (B, N, G)
+        iou = torch.where(gt_mask[:, None, :], iou, 0.0)
+        best = iou.amax(dim=2)
+        gidx = torch.arange(g, device=iou.device)
+        match = torch.where(iou == best[..., None], gidx, g).amin(dim=2)
+        fg = (best >= fg_iou) & proposal_valid
+    matched = torch.gather(gt_boxes, 1, match[..., None].expand(-1, -1, gt_boxes.shape[-1]))
+    target = encode(torch.where(fg[..., None], matched, proposals), proposals)
+    valid = proposal_valid.to(score_logits.dtype)
+    lbl = fg.to(score_logits.dtype)
+    x = score_logits
+    bce = x.clamp(min=0) - x * lbl + torch.log1p(torch.exp(-x.abs()))
+    cls_loss = (bce * valid).sum() / valid.sum().clamp(min=1.0)
+    reg = smooth_l1(box_deltas, target).sum(-1)
+    reg_loss = (reg * lbl).sum() / lbl.sum().clamp(min=1.0)
+    return dict(refine_cls_loss=cls_loss, refine_reg_loss=reg_loss,
+                refine_loss=cls_loss + reg_loss)

@@ -4,18 +4,23 @@
     python -m vision3d_tpu_torch.train_cli --config configs/second/all_classes.yaml \\
         --data-root .../training --split-dir .../splitfiles --cache-dir .../cache
 
-Trains SECOND from KITTI-format data: ``KittiDatasetTrain`` (augmentation
-in ``--workers`` spawned processes) feeding ``make_train_step`` on the
-card, per-step learning-rate schedule, gradient clip, metrics every 10
-steps (stdout and ``--metrics-jsonl``), one line per epoch with frames/s
-and the share of the epoch spent waiting for the loader, and a checkpoint
-every ``ckpt_interval_epochs`` and after the last epoch; ``--resume``
+Trains SECOND, or PV-RCNN (``--model pvrcnn``: stage 1 alone;
+``pvrcnn2``: both stages), from KITTI-format data: ``KittiDatasetTrain``
+(augmentation in ``--workers`` spawned processes) feeding
+``make_train_step`` / ``make_pvrcnn_train_step`` on the card, per-step
+learning-rate schedule, gradient clip, metrics every 10 steps (stdout
+and ``--metrics-jsonl``), one line per epoch with frames/s and the share
+of the epoch spent waiting for the loader, and a checkpoint every
+``ckpt_interval_epochs`` and after the last epoch; ``--resume``
 continues from the newest checkpoint in ``--ckpt-dir``. Runs on ``cuda``
 unless ``--device cpu``.
 
-Not ported yet: several cards (the JAX package's device mesh), PV-RCNN
-training (``--model pvrcnn|pvrcnn2``, ROADMAP A11b), and dense late stages in
-training (``--dense-from`` below 4 raises in the model, ROADMAP A9b).
+A two-stage step draws its grid points and random background keypoints
+from a CPU generator seeded from (``--seed``, step).
+
+Not ported yet: several cards (the JAX package's device mesh) and dense
+late stages in training (``--dense-from`` below 4 raises in the model,
+ROADMAP A9b).
 """
 
 import argparse
@@ -48,9 +53,6 @@ def main(argv=None):
                          "trains every stage sparse")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model != "second":
-        raise NotImplementedError(
-            f"--model {args.model}: PV-RCNN training is not ported yet (ROADMAP A11b)")
 
     import torch
 
@@ -59,7 +61,10 @@ def main(argv=None):
     from vision3d_tpu_torch.data.loader import DataLoader
     from vision3d_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
     from vision3d_tpu_torch.training.metrics import JsonlWriter, MetricLogger, StdoutWriter
-    from vision3d_tpu_torch.training.train import create_train_state, make_train_step
+    from vision3d_tpu_torch.training.train import (create_pvrcnn_train_state,
+                                                   create_train_state,
+                                                   make_pvrcnn_train_step,
+                                                   make_train_step)
 
     cfg = Config.from_yaml(args.config) if args.config else Config()
     overrides = {k: v for k, v in (("epochs", args.epochs),
@@ -75,12 +80,19 @@ def main(argv=None):
     dataset = KittiDatasetTrain(cfg, rng=np.random.default_rng(args.seed))
     loader = DataLoader(dataset, cfg, seed=args.seed, num_workers=args.workers)
     steps_per_epoch = len(loader)
-    model, tx, state = create_train_state(
-        cfg, torch.Generator().manual_seed(args.seed), steps_per_epoch, device)
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.model == "second":
+        model, tx, state = create_train_state(cfg, generator, steps_per_epoch, device)
+        step_fn = make_train_step(model, tx, cfg)
+    else:
+        two_stage = args.model == "pvrcnn2"
+        model, tx, state = create_pvrcnn_train_state(
+            cfg, generator, steps_per_epoch, device, two_stage=two_stage)
+        step_fn = make_pvrcnn_train_step(model, tx, cfg, train_stage2=two_stage,
+                                         seed=args.seed)
     start_epoch = 0
     if args.resume:
         state, start_epoch = maybe_resume(cfg.train.ckpt_dir, state)
-    step_fn = make_train_step(model, tx, cfg)
     logger = MetricLogger(writers=[StdoutWriter(), JsonlWriter(args.metrics_jsonl)])
 
     records = []
