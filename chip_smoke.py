@@ -6,7 +6,8 @@ and on the column backend, takes training steps of the same model from a
 fresh seeded init, trains, evaluates and draws through the
 command-line entry points on a synthetic KITTI-format set, runs
 PV-RCNN inference, one stage and two, at full width and through eval_cli,
-and trains PV-RCNN in both modes at full width and through train_cli.
+trains PV-RCNN in both modes at full width and through train_cli, and
+trains SECOND with dense late stages and on the column backend.
 
     python3 chip_smoke.py
 
@@ -59,7 +60,8 @@ Phases, each printing lines before the last:
   6. a small-geometry training reference: one loss.backward() on the card
      (kernels; float32, so every gather_gemm launch on the FMA route) and on
      the CPU (plain versions), float32 with TF32 off: loss to 1e-5
-     relative, every gradient to 1e-4 of its tensor's max;
+     relative, every gradient to 1e-4 of its tensor's max, running
+     statistics to 1e-5;
   7. the command-line entry points at full geometry in the yaml's float32
      (every launch on the FMA route), on a synthetic KITTI-format set from
      tools/make_synthetic_kitti.py (16 train, 48 val frames): train_cli,
@@ -114,7 +116,30 @@ Phases, each printing lines before the last:
      train_cli --model pvrcnn and pvrcnn2 for one epoch of phase 7's 16
      train frames, then eval_cli --ckpt of each checkpoint as its own
      model, in the yaml's float32: launches per step and per batch,
-     frames/s, host wait, finite AP tables (no gate).
+     frames/s, host wait, finite AP tables (no gate);
+ 10. SECOND training in the other forms of the JAX package's train step
+     (TRAIN_FORMS): (a) at phase 5's full geometry, bf16, from
+     ``init_second`` seed 0 on phase 5's batch, voxel backend with
+     ``train_dense_from_stage`` 2 and 3 (the late stages dense: cuDNN conv3d
+     forward and backward, the cutover one gather_rows each way) and column
+     backend at 4 and 2 (every column conv's dX on column_conv over the
+     transposed BEV rulebook, its dW a gather_rows regather + one GEMM):
+     launches of a step by kernel and route, the column convs' dX
+     launches of it apart by route and shape (ColumnConvFn's backward),
+     every gather_rows launch of it equal to the plain version, capacity
+     counters 0, finite loss, gradients and parameters, loss decreasing,
+     the p50 of 6 steps after 3 warm-ups, peak memory; (b) column_conv at
+     the dX shapes, each held to the dX launches (a) counted there (the
+     batch's transposed rulebooks, gradient rows at the active output
+     sites interleaved in z) against its plain version on each route, as
+     phase 2c, broken copies included; (c) at small geometry in float32
+     with TF32 off, one step's loss, gradients and running statistics of
+     voxel at 2, column at 4 and column at 2 on the card and on the CPU
+     (the card's ReLU gates replayed), as phase 6; (d) train_cli on phase
+     7's 16 train frames with --dense-from 2, on a yaml that sets
+     SPARSE_BACKEND: column and with --model pvrcnn2 --dense-from 2, then
+     eval_cli --ckpt of each checkpoint: launches per step and per batch,
+     finite losses, frames/s, finite AP tables (no gate).
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -203,6 +228,38 @@ PV_MODES = ("pvrcnn", "pvrcnn2")
 # against JAX); the other gates are in pvrcnn_training_reference_phase
 PV_STAT_TOL = 1e-5
 PV_TRAIN_WARMUP, PV_TRAIN_TIMED = 3, 6
+# train_cli --model pvrcnn2 --dense-from 2 in the yaml's float32 (phase 10d)
+# ran out of the card's 80 GB at batch 8 (75.08 GiB allocated when a
+# 900 MiB request failed, NVIDIA H100 80GB HBM3): it takes batches of 4
+PV_DENSE_CLI_BATCH = 4
+# phase 5's all-sparse step, voxel backend (phase 6 checks it card vs CPU)
+ALL_SPARSE = (dict(), {"gather_gemm": 27, "gather_gemm.mma": 26, "gather_gemm.fma": 1,
+                       "gather_rows": 14})
+# SECOND training in the forms of phase 10, each with the launches of one
+# bf16 step by kernel and route (phase 5's all-sparse voxel step has 27
+# gather_gemm + 14 gather_rows): a sparse conv launches once forward, once
+# for dX (but the first conv, whose VFE input takes no gradient) and one
+# gather_rows for its dW regather; a dense cutover one gather_rows forward
+# and one backward. Only the first conv (C = 4) runs on "fma".
+TRAIN_FORMS = {
+    "voxel_df2": (dict(train_dense_from_stage=2),
+                  {"gather_gemm": 11, "gather_gemm.mma": 10, "gather_gemm.fma": 1,
+                   "gather_rows": 8}),
+    "voxel_df3": (dict(train_dense_from_stage=3),
+                  {"gather_gemm": 19, "gather_gemm.mma": 18, "gather_gemm.fma": 1,
+                   "gather_rows": 12}),
+    "column_df4": (dict(sparse_backend="column"),
+                   {"column_conv": 27, "column_conv.mma": 26, "column_conv.fma": 1,
+                    "gather_rows": 14}),
+    "column_df2": (dict(sparse_backend="column", train_dense_from_stage=2),
+                   {"column_conv": 11, "column_conv.mma": 10, "column_conv.fma": 1,
+                    "gather_rows": 8}),
+}
+
+
+# of TRAIN_FORMS' column_conv launches per step, those of the column convs'
+# dX (the first conv, C = 4, takes none), all on "mma" in bf16
+TRAIN_FORMS_DX = {"column_df4": 13, "column_df2": 5}
 
 
 class SmokeFailure(RuntimeError):
@@ -485,8 +542,10 @@ def column_path_layers(cfg, points, num):
     active sites, from the plain column plan of the batch run through all
     four stages (``dense_from_stage = 4``). Returns (layers, counters):
     layers, one dict per distinct conv shape, with its launches per forward
-    at ``dense_from_stage`` 2 and 4; counters, the plan's own drop counts
-    under the names ``Second.forward`` gives them."""
+    at ``dense_from_stage`` 2 and 4, its transposed rulebook ``rbt`` and
+    its active output sites ``out_site`` (what the dX of training reads,
+    phase 10b); counters, the plan's own drop counts under the names
+    ``Second.forward`` gives them."""
     layers = []
     with torch.no_grad():
         vox = voxelize_batch(points, num, cfg)
@@ -509,7 +568,7 @@ def column_path_layers(cfg, points, num):
                 layers.append(dict(shape=f"s{si}_subm_{ci}x{co}", launches_df4=cnt,
                                    launches_per_forward=cnt if si < 2 else 0, C=ci,
                                    Cout=co, kernel=(3, 3, 3), stride_z=1, pad_z=1,
-                                   rb=rbs, **common))
+                                   rb=rbs, rbt=rbs, out_site=site, **common))
             kernel, stride, pad = spec["kernel"], spec["stride"], spec["pad"]
             out_grid = sp.out_grid_shape(grid, kernel, stride, pad)
             if kernel[1:] == (1, 1) and stride[1:] == (1, 1):
@@ -522,12 +581,17 @@ def column_path_layers(cfg, points, num):
             rbd = csp.build_bev_rulebook_batched(keys, mask, grid[1:], kernel[1:],
                                                  stride[1:], pad[1:], ok, om, out_grid[1:])
             cout = spec["features"]
+            rbt = csp.transpose_bev_rulebook_batched(keys, mask, grid[1:], kernel[1:],
+                                                     stride[1:], pad[1:], ok, om,
+                                                     out_grid[1:])
+            out_site = csp.column_occupancy_batched(site, rbd, kernel, stride[0],
+                                                    pad[0]) & om[..., None]
             layers.append(dict(shape=f"s{si}_down_{cin}x{cout}_k{kernel[1] * kernel[2]}",
                                launches_df4=1, launches_per_forward=1 if si < 2 else 0,
                                C=cin, Cout=cout, kernel=kernel, stride_z=stride[0],
-                               pad_z=pad[0], rb=rbd, **common))
-            site = csp.column_occupancy_batched(site, rbd, kernel, stride[0],
-                                                pad[0]) & om[..., None]
+                               pad_z=pad[0], rb=rbd, rbt=rbt, out_site=out_site,
+                               **common))
+            site = out_site
             keys, mask, grid, cin = ok, om, out_grid, cout
     return layers, counters
 
@@ -567,7 +631,8 @@ def column_kernel_phase(layers, dev):
         row = {"shape": name, "launches_per_forward": layer["launches_per_forward"],
                "launches_df4": layer["launches_df4"], "B": b, "N": n, "M": m, "D": d,
                "D_out": d_out, "C": c, "Cout": cout, "K2": k2, "active_taps": taps,
-               "active_out_sites": out_sites, "route": route_of(torch.bfloat16, c, cout)}
+               "active_out_sites": out_sites, "route": route_of(torch.bfloat16, c, cout),
+               "kz": kz, "pad_z": pz}
         runs = [("bf16", torch.bfloat16, 2e-2, None), ("f32", torch.float32, 1e-4, None)]
         if row["route"] != "fma":
             runs.insert(1, ("bf16_fma", torch.bfloat16, 2e-2, "fma"))
@@ -1059,71 +1124,6 @@ def max_gates(gates, replay):
         yield differ
     finally:
         torch.Tensor.amax = orig
-
-
-def training_reference_phase(dev):
-    """Phase 6: small geometry, float32, TF32 off: loss and gradients of one
-    step's forward + backward on the card (kernels) against the CPU (plain
-    versions), same weights and batch: loss to 1e-5 relative, every
-    gradient to 1e-4 of its tensor's max. The CPU's oneDNN convs are
-    switched off too: their float32 backward is a reduced-accuracy
-    algorithm.
-
-    The CPU's backward uses the card's ReLU gates. A ReLU input within
-    float32 noise of zero (a handful of the 7.5e6 here) can be positive on
-    one device and not on the other; such a gate passes its whole upstream
-    gradient on one side only, which moves the gradients of its layer and of
-    every layer before it by ~1e-3 of their scale (measured against a
-    float64 run, both devices are then equally far from it). That is a
-    property of ReLU in float32, not of the kernels, so the gates are held
-    equal, and the number that differ is counted and bounded (1e-5 of all
-    gates). Called under ``full_float32()``."""
-    cfg = small_geometry_cfg()
-    b = kitti_like_train_batch(1, 2, 60000, max_gt=8, cfg=cfg)
-    b["points"], b["num_points"] = crop_to_grid(cfg, b["points"])
-    n = int(b["num_points"][0])
-    b["boxes"][..., 0] = np.clip(b["boxes"][..., 0], 3.0, 22.0)
-    b["boxes"][..., 1] = np.clip(b["boxes"][..., 1], -10.0, 10.0)
-    model0, _, _ = create_train_state(cfg, torch.Generator().manual_seed(2), device="cpu")
-    sd = model0.state_dict()
-    runs, gates = [], []
-    with torch.backends.mkldnn.flags(enabled=False):
-        for d in (dev, torch.device("cpu")):
-            model, _, _ = create_train_state(cfg, device=d, state_dict=sd)
-            batch = _to_device(b, d)
-            anchors = torch.as_tensor(make_anchors(cfg), device=d)
-            with torch.no_grad():
-                targets = assign_targets_batch(
-                    batch["boxes"], batch["class_idx"], batch["gt_mask"],
-                    batch["box_ignore"], anchors, cfg)
-            zw.reset_launches()
-            with relu_gates(gates, replay=bool(runs)) as differ:
-                cls_map, reg_map, diag = model(batch["points"], batch["num_points"])
-                loss = proposal_loss(cls_map, reg_map, targets, cfg)["loss"]
-                loss.backward()
-            runs.append((float(loss.detach()), {k: int(v) for k, v in diag.items()},
-                         {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
-                         int(targets.M_reg.sum()), dict(zw.LAUNCHES)))
-    (gl, gdiag, ggrads, gpos, glaunch), (cl, cdiag, cgrads, cpos, claunch) = runs
-    check(glaunch["gather_gemm"] == 27 and glaunch["gather_rows"] == 14
-          and glaunch["gather_gemm.mma"] == 0 and glaunch["gather_gemm.fma"] == 27,
-          f"card launches {glaunch}")
-    check(sum(claunch.values()) == 0, f"CPU run launched kernels: {claunch}")
-    check(gdiag == cdiag, f"counters differ: card {gdiag} vs CPU {cdiag}")
-    check(gpos == cpos and cpos > 0, f"positives: card {gpos}, CPU {cpos}")
-    check(abs(gl - cl) <= 1e-5 * abs(cl), f"loss: card {gl} vs CPU {cl}")
-    n_gates = sum(g.numel() for g in gates)
-    check(len(differ) == len(gates) == 21, f"{len(gates)} ReLUs recorded, "
-                                           f"{len(differ)} replayed, not 21")
-    check(sum(differ) <= 1e-5 * n_gates, f"{sum(differ)} of {n_gates} ReLU gates differ")
-    rels = {name: float((ggrads[name] - cg).abs().max())
-            / max(float(cg.abs().max()), 1e-30) for name, cg in cgrads.items()}
-    worst = max(rels, key=rels.get)
-    check(rels[worst] <= 1e-4, f"gradient of {worst}: card vs CPU differ by "
-                               f"{rels[worst]} of its max; all: {rels}")
-    return dict(points=n, positives=cpos, loss_card=gl, loss_cpu=cl,
-                gradients=len(rels), worst_grad=worst, worst_grad_rel=rels[worst],
-                relu_gates=n_gates, gates_that_differed=sum(differ), counters=cdiag)
 
 
 def launches_at(name, rows, count, dtype, times):
@@ -1809,6 +1809,302 @@ def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
     return out
 
 
+def float32_launches(want):
+    """The launches ``want`` gives in bf16 as float32 runs them: every
+    launch of a routed kernel on "fma"."""
+    out = {k: v for k, v in want.items() if not k.endswith(".mma")}
+    for name in ("gather_gemm", "column_conv"):
+        if name in want:
+            out[f"{name}.fma"] = want[name]
+    return out
+
+
+@contextlib.contextmanager
+def checked_gathers(record):
+    """Every ``gather_rows`` launch of the model (the dW regathers of both
+    backends and the dense cutovers' gathers, forward and backward) held
+    against the plain version on the same inputs, which must be equal;
+    appends (rows of the table, row width, dtype, gathered rows) to
+    ``record``. The plain version launches nothing."""
+    from vision3d_tpu_torch.ops import column_conv as tcc
+    from vision3d_tpu_torch.ops import gather_rows as tgr
+
+    kernel = tgr.gather_rows
+
+    def gather(table, idx):
+        got = kernel(table, idx)
+        check(torch.equal(got, gather_rows_plain(table, idx)),
+              f"gather_rows on a ({table.shape[0]}, {table.shape[1]}) {table.dtype} "
+              f"table differs from its plain version")
+        record.append((table.shape[0], table.shape[1], str(table.dtype), idx.numel()))
+        return got
+
+    tgr.gather_rows = tcc.gather_rows = gather
+    try:
+        yield record
+    finally:
+        tgr.gather_rows = tcc.gather_rows = kernel
+
+
+def dx_shape_key(c, cout, d, k2, kz, pad_z):
+    """The key of one dX shape of the column conv: (C, Cout, D, K2, kz,
+    pad_z) of the column_conv launch that computes it."""
+    return (int(c), int(cout), int(d), int(k2), int(kz), int(pad_z))
+
+
+@contextlib.contextmanager
+def counted_dx(record):
+    """The column_conv launches of every column conv's dX (the backward of
+    ``ColumnConvFn``) counted apart from the forward's: ``record`` gets
+    "launches" ({"column_conv": n, "column_conv.<route>": n}) and "shapes"
+    ({dx_shape_key: n}), summed over the calls made inside."""
+    from vision3d_tpu_torch.ops import column_conv as tcc
+
+    dx = tcc.column_conv_dx
+    names = ["column_conv"] + [f"column_conv.{r}" for r in kernels.ROUTES["column_conv"]]
+    launches = record.setdefault("launches", dict.fromkeys(names, 0))
+    shapes = record.setdefault("shapes", {})
+
+    def counted(g, rbt_idx, weight, kernel, d, c, stride_z, pad_z, compute_dtype):
+        before = {k: zw.LAUNCHES[k] for k in names}
+        out = dx(g, rbt_idx, weight, kernel, d, c, stride_z, pad_z, compute_dtype)
+        for k in names:
+            launches[k] += zw.LAUNCHES[k] - before[k]
+        kz = kernel[0]
+        key = dx_shape_key(weight.shape[1], c, d + 2 * pad_z - kz + 1,
+                           kernel[1] * kernel[2], kz, kz - 1 - pad_z)
+        shapes[key] = shapes.get(key, 0) + zw.LAUNCHES["column_conv"] - before["column_conv"]
+        return out
+
+    tcc.column_conv_dx = counted
+    try:
+        yield record
+    finally:
+        tcc.column_conv_dx = dx
+
+
+def train_forms_phase(cfg, dev):
+    """Phase 10a: SECOND training at full geometry, bf16, in the forms of
+    TRAIN_FORMS, each from ``init_second`` seed 0 on phase 5's batch: the
+    launches of the first step by kernel and route, the column convs' dX
+    launches of it apart (TRAIN_FORMS_DX), every gather_rows launch of it
+    against its plain version, capacity counters 0, finite
+    loss, gradients and parameters, loss decreasing, the p50 of the timed
+    steps and the peak memory."""
+    batch = _to_device(kitti_like_train_batch(0, BATCH, POINTS, cfg=cfg), dev)
+    out = {}
+    for form, (kw, want) in TRAIN_FORMS.items():
+        cfg_f = cfg.replace(**kw)
+        model, tx, state = create_train_state(cfg_f, torch.Generator().manual_seed(0),
+                                              STEPS_PER_EPOCH, dev)
+        step = make_train_step(model, tx, cfg_f)
+        gathers, dx = [], {}
+        with checked_gathers(gathers), counted_dx(dx):
+            (state, first), launches = counted(lambda: step(state, batch), want)
+        check(len(gathers) == want["gather_rows"], f"{form}: {len(gathers)} gathers checked")
+        n_dx = TRAIN_FORMS_DX.get(form, 0)
+        check(dx["launches"] == {"column_conv": n_dx, "column_conv.mma": n_dx,
+                                 "column_conv.fma": 0},
+              f"{form}: column dX launches {dx['launches']}, not {n_dx} on mma")
+        losses = [float(first["loss"])]
+        counters = {k: int(v) for k, v in state.diagnostics.items()}
+        times = []
+        for i in range(1, TRAIN_WARMUP + TRAIN_TIMED):
+            if i == TRAIN_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, o = step(state, batch)
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(o["loss"]))
+            for k, v in state.diagnostics.items():
+                counters[k] = max(counters[k], int(v))
+        peak = int(torch.cuda.max_memory_allocated())
+        check_counters(counters, f"{form} training")
+        check(all(np.isfinite(losses)), f"{form}: non-finite loss {losses}")
+        for name, p in model.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{form}: missing or non-finite gradient of {name}")
+            check(bool(torch.isfinite(p).all()), f"{form}: non-finite parameter {name}")
+        check(losses[-1] < losses[0], f"{form}: loss did not decrease: {losses}")
+        out[form] = dict(launches=launches, dx=dx, counters=counters, losses=losses,
+                         step_ms_p50=float(np.median(times)), step_ms=times,
+                         peak_mem_bytes=peak, gathers_checked=len(gathers),
+                         gather_shapes=sorted(set(gathers)))
+        del model, tx, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def column_backward_layers(layers, c_in):
+    """The dX of every column conv of ``layers`` (``column_path_layers``)
+    but the first (C = ``c_in``: no gradient to the VFE input), as the
+    column conv the training backward launches: input the gradient rows
+    at the active output sites, interleaved in z for stride_z 2 (D' = D +
+    2*pad_z - kz + 1 rows), over the transposed rulebook, C and Cout
+    swapped, stride 1, pad_z' = kz-1-pad_z. Launch counts as the
+    forward's (per training step at ``train_dense_from_stage`` 2 and 4)."""
+    out = []
+    for layer in layers:
+        if layer["C"] == c_in:
+            continue
+        kz, sz, pz, d = layer["kernel"][0], layer["stride_z"], layer["pad_z"], layer["D"]
+        d_out = csp.conv_out_depth(d, kz, sz, pz)
+        d_full = d + 2 * pz - kz + 1
+        osite = layer["out_site"]
+        site = osite.new_zeros((*osite.shape[:2], d_full))
+        site[:, :, :(d_out - 1) * sz + 1:sz] = osite
+        out.append(dict(shape=f"{layer['shape']}_dX", C=layer["Cout"], Cout=layer["C"],
+                        D=d_full, N=osite.shape[1],
+                        kernel=layer["kernel"], stride_z=1, pad_z=kz - 1 - pz,
+                        rb=layer["rbt"], site=site,
+                        launches_per_forward=layer["launches_per_forward"],
+                        launches_df4=layer["launches_df4"]))
+    return out
+
+
+def training_reference_phase(dev, forms):
+    """Phases 6 and 10c: small geometry, float32, TF32 off (called under
+    ``full_float32()``): one step's forward + backward of SECOND in each of
+    ``forms`` ({name: (config changes, bf16 launches per step)}) on the
+    card (kernels, every routed launch on "fma") and on the CPU (plain
+    versions), from one set of weights and one batch: loss to 1e-5
+    relative, every gradient to 1e-4 of its tensor's max, running
+    statistics to PV_STAT_TOL of 1 + |value|. The CPU's oneDNN convs are
+    switched off too: their float32 backward is a reduced-accuracy
+    algorithm.
+
+    The CPU's backward uses the card's ReLU gates. A ReLU input within
+    float32 noise of zero (a handful of the 7.5e6 here) can be positive on
+    one device and not on the other; such a gate passes its whole upstream
+    gradient on one side only, which moves the gradients of its layer and of
+    every layer before it by ~1e-3 of their scale (measured against a
+    float64 run, both devices are then equally far from it). That is a
+    property of ReLU in float32, not of the kernels, so the gates are held
+    equal, and the number that differ is counted and bounded (1e-5 of all
+    gates)."""
+    cfg = small_geometry_cfg()
+    b = kitti_like_train_batch(1, 2, 60000, max_gt=8, cfg=cfg)
+    b["points"], b["num_points"] = crop_to_grid(cfg, b["points"])
+    b["boxes"][..., 0] = np.clip(b["boxes"][..., 0], 3.0, 22.0)
+    b["boxes"][..., 1] = np.clip(b["boxes"][..., 1], -10.0, 10.0)
+    model0, _, _ = create_train_state(cfg, torch.Generator().manual_seed(2), device="cpu")
+    sd = model0.state_dict()
+    out = {}
+    with torch.backends.mkldnn.flags(enabled=False):
+        for form, (kw, want) in forms.items():
+            cfg_f = cfg.replace(**kw)
+            runs, gates = [], []
+            for d in (dev, torch.device("cpu")):
+                model, _, _ = create_train_state(cfg_f, device=d, state_dict=sd)
+                batch = _to_device(b, d)
+                anchors = torch.as_tensor(make_anchors(cfg_f), device=d)
+                with torch.no_grad():
+                    targets = assign_targets_batch(
+                        batch["boxes"], batch["class_idx"], batch["gt_mask"],
+                        batch["box_ignore"], anchors, cfg_f)
+                zw.reset_launches()
+                with relu_gates(gates, replay=bool(runs)) as differ:
+                    cls_map, reg_map, diag = model(batch["points"], batch["num_points"])
+                    loss = proposal_loss(cls_map, reg_map, targets, cfg_f)["loss"]
+                    loss.backward()
+                launched = {k: n for k, n in zw.LAUNCHES.items() if n}
+                check(launched == ({} if d.type == "cpu" else float32_launches(want)),
+                      f"{form} reference on {d.type}: launches {launched}")
+                runs.append(dict(
+                    loss=float(loss.detach()), counters={k: int(v) for k, v in diag.items()},
+                    positives=int(targets.M_reg.sum()),
+                    grads={k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+                    stats={k: v.detach().cpu() for k, v in model.state_dict().items()
+                           if "running_" in k}))
+            g, c = runs
+            check(g["counters"] == c["counters"], f"{form}: counters {g['counters']} vs "
+                                                  f"{c['counters']}")
+            check(g["positives"] == c["positives"] > 0,
+                  f"{form}: positives card {g['positives']}, CPU {c['positives']}")
+            check(abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+                  f"{form}: loss card {g['loss']} vs CPU {c['loss']}")
+            n_gates = sum(x.numel() for x in gates)
+            check(len(differ) == len(gates) == 21, f"{form}: {len(gates)} ReLUs recorded, "
+                                                   f"{len(differ)} replayed, not 21")
+            check(sum(differ) <= 1e-5 * n_gates,
+                  f"{form}: {sum(differ)} of {n_gates} ReLU gates differ")
+            rels = {n: float((g["grads"][n] - x).abs().max()) / max(float(x.abs().max()), 1e-30)
+                    for n, x in c["grads"].items()}
+            worst = max(rels, key=rels.get)
+            check(rels[worst] <= 1e-4, f"{form}: gradient of {worst} differs by "
+                                       f"{rels[worst]} of its max; all: {rels}")
+            stat_err = max(float(((g["stats"][k] - x).abs() / (1 + x.abs())).max())
+                           for k, x in c["stats"].items())
+            check(len(c["stats"]) == 42 and stat_err <= PV_STAT_TOL,
+                  f"{form}: running statistics differ by {stat_err}")
+            out[form] = dict(points=int(b["num_points"][0]), positives=c["positives"],
+                             loss_card=g["loss"], loss_cpu=c["loss"], gradients=len(rels),
+                             worst_grad=worst, worst_grad_rel=rels[worst], stat_err=stat_err,
+                             relu_gates=n_gates, gates_that_differed=sum(differ),
+                             counters=c["counters"])
+    return out
+
+
+def train_forms_cli_phase(shapes, col_rows):
+    """Phase 10d: train_cli for one epoch of phase 7's 16 synthetic train
+    frames with ``--dense-from 2``, on a yaml that sets ``SPARSE_BACKEND:
+    column``, and with ``--model pvrcnn2 --dense-from 2``, in the yaml's
+    float32; then eval_cli --ckpt of each checkpoint (the column one on
+    its yaml) on the 48 val frames: launches per step and per batch,
+    finite losses, frames/s, peak memory, finite AP tables (no gate). The
+    PV-RCNN run takes batches of PV_DENSE_CLI_BATCH frames: at 8 in
+    float32 it needs more than the card's 80 GB."""
+    from vision3d_tpu_torch import eval_cli, train_cli
+
+    golden = json.loads(GOLDEN.read_text())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        val, data = synthetic_set(tmp, golden)
+        column_yaml = tmp / "all_classes_column.yaml"
+        column_yaml.write_text(CONFIG.read_text() + "\nSPARSE_BACKEND: column\n")
+        batches = -(-len(val) // BATCH)
+        zwin_eval = launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
+                                batches)
+        col_eval = launches_at("column_conv", col_rows, "launches_per_forward",
+                               torch.float32, batches)
+        runs = {"second_df2": (["--dense-from", "2"], data, "voxel_df2", zwin_eval, BATCH),
+                "second_column": ([], ["--config", str(column_yaml)] + data[2:],
+                                  "column_df4", col_eval, BATCH),
+                "pvrcnn2_df2": (["--model", "pvrcnn2", "--dense-from", "2"], data,
+                                "voxel_df2", zwin_eval, PV_DENSE_CLI_BATCH)}
+        for name, (extra, args, form, want_eval, batch) in runs.items():
+            steps = 16 // batch
+            want = {k: v * steps for k, v in float32_launches(TRAIN_FORMS[form][1]).items()}
+            recs, launches = counted(lambda: train_cli.main(
+                args + extra + ["--batch-size", str(batch), "--workers", "2", "--epochs", "1",
+                                "--ckpt-dir", str(tmp / f"ck_{name}"),
+                                "--metrics-jsonl", str(tmp / f"{name}.jsonl")]), want)
+            check(len(recs) == 1 and recs[0]["steps"] == steps
+                  and all(np.isfinite(recs[0]["losses"])), f"train_cli {name}: {recs}")
+            ckpt = recs[0]["checkpoint"]
+            check(ckpt and Path(ckpt).is_file(), f"train_cli {name}: no checkpoint")
+            model = ["--model", "pvrcnn2"] if "pvrcnn2" in extra else []
+            (table, timing), elaunch = counted(lambda: eval_cli.main(
+                args + model + ["--ckpt", ckpt, "--out-json", str(tmp / f"ap_{name}.json")]),
+                want_eval)
+            check(timing["frames"] == len(val), f"eval_cli {name}: {timing['frames']} frames")
+            check(all(np.isfinite(v) for row in table.values() for v in row.values()),
+                  f"eval_cli {name} --ckpt: {table}")
+            out[name] = dict(batch=batch, train={k: recs[0][k] for k in ("seconds", "frames_per_s",
+                                                            "host_wait_s", "peak_mem_bytes",
+                                                            "losses")},
+                             train_per_step={k: v // steps for k, v in launches.items() if v},
+                             eval=timing,
+                             eval_per_batch={k: v // batches for k, v in elaunch.items() if v},
+                             table=table)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1891,7 +2187,7 @@ def main():
           f"{[round(x, 4) for x in train['losses']]}, counters {train['counters']}, "
           f"launches per step {train['launches']}", flush=True)
     with full_float32():
-        tref = training_reference_phase(dev)
+        tref = training_reference_phase(dev, {"voxel_df4": ALL_SPARSE})
     print(f"training reference check (card vs CPU, f32, small geometry): {tref}",
           flush=True)
     gc.collect()
@@ -1981,6 +2277,62 @@ def main():
               f"({r['eval']['frames'] / r['eval']['seconds']:.2f} frames/s), launches per "
               f"batch {r['eval_per_batch']}, AP (untrained, no gate) {r['table']}", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    forms = train_forms_phase(cfg, dev)
+    for form, r in forms.items():
+        print(f"train {form} (batch {BATCH} x {POINTS} points, bf16, seeded init): "
+              f"{TRAIN_TIMED} timed steps, p50 {r['step_ms_p50']:.2f} ms "
+              f"({[round(t, 2) for t in r['step_ms']]}), peak mem "
+              f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, launches per step {r['launches']}, "
+              f"counters {r['counters']}, losses {[round(x, 4) for x in r['losses']]}; "
+              f"column dX launches {r['dx'].get('launches')}; "
+              f"{r['gathers_checked']} gather_rows launches equal to the plain version "
+              f"(rows, width, dtype, gathered: {r['gather_shapes']})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        layers, _ = column_path_layers(cfg, points, num_t)
+    bw_layers = column_backward_layers(layers, cfg.c_in)
+    del layers
+    bw_rows = column_kernel_phase(bw_layers, dev)
+    del bw_layers
+    # the dX launches phase 10a's first steps made, by 10b's shape: each
+    # must be one of 10b's shapes, as often as the layer list says
+    for form, count in (("column_df4", "launches_df4"), ("column_df2",
+                                                          "launches_per_forward")):
+        measured = dict(forms[form]["dx"]["shapes"])
+        for r in bw_rows:
+            key = dx_shape_key(r["C"], r["Cout"], r["D"], r["K2"], r["kz"], r["pad_z"])
+            r[f"launches_dx_{form}"] = measured.pop(key, 0)
+            check(r[f"launches_dx_{form}"] == r[count],
+                  f"{form}: {r['shape']} launched {r[f'launches_dx_{form}']} times in a "
+                  f"step, not {r[count]}")
+        check(not measured, f"{form}: dX launches of shapes 10b did not check: {measured}")
+        check(route_launches("column_conv", bw_rows, f"launches_dx_{form}")
+              == forms[form]["dx"]["launches"],
+              f"{form}: dX launches by route {forms[form]['dx']['launches']} differ from "
+              f"10b's routes")
+    with full_float32():
+        fref = training_reference_phase(dev, {f: TRAIN_FORMS[f] for f in (
+            "voxel_df2", "column_df4", "column_df2")})
+    for form, r in fref.items():
+        print(f"train {form} reference (card vs CPU, f32, small geometry): {r}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fcli = train_forms_cli_phase(shapes, col_rows)
+    for name, r in fcli.items():
+        t = r["train"]
+        print(f"train_cli {name} (float32, 16 frames, batch {r['batch']}, 2 loader processes): "
+              f"{t['seconds']:.2f} s, {t['frames_per_s']:.2f} frames/s, host wait "
+              f"{t['host_wait_s']:.2f} s ({t['host_wait_s'] / t['seconds']:.1%}), peak mem "
+              f"{t['peak_mem_bytes'] / 2**30:.2f} GiB, losses "
+              f"{[round(x, 4) for x in t['losses']]}, launches per step "
+              f"{r['train_per_step']}; eval_cli --ckpt: {r['eval']['frames']} frames in "
+              f"{r['eval']['seconds']:.2f} s ({r['eval']['frames'] / r['eval']['seconds']:.2f} "
+              f"frames/s), launches per batch {r['eval_per_batch']}, AP (no gate) "
+              f"{r['table']}", flush=True)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2035,6 +2387,13 @@ def main():
          "launches_train_cli_pvrcnn_per_step": {
              m: {k: v for k, v in r["train_per_step"].items() if k.startswith("gather_gemm")}
              for m, r in pvtcli.items()},
+         # SECOND training with dense late stages (phase 10a, bf16; 10d, float32)
+         "launches_train_forms_per_step": {
+             f: {k: v for k, v in r["launches"].items() if k.startswith("gather_gemm")}
+             for f, r in forms.items() if f.startswith("voxel")},
+         "launches_train_cli_forms_per_step": {
+             n: {k: v for k, v in r["train_per_step"].items() if k.startswith("gather_gemm")}
+             for n, r in fcli.items() if n != "second_column"},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies
@@ -2053,6 +2412,12 @@ def main():
                                             for m, r in pvt.items()},
          "launches_train_cli_pvrcnn_per_step": {m: r["train_per_step"]["gather_rows"]
                                                 for m, r in pvtcli.items()},
+         # phase 10: the dW regathers and the dense cutovers of the new forms,
+         # each launch of the first step equal to the plain version
+         "launches_train_forms_per_step": {f: r["launches"]["gather_rows"]
+                                           for f, r in forms.items()},
+         "launches_train_cli_forms_per_step": {n: r["train_per_step"]["gather_rows"]
+                                               for n, r in fcli.items()},
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gr_rows),
          "ms": per(gr_rows, "bf16_ms"), "plain_ms": per(gr_rows, "bf16_plain_ms"),
          "bound_ms": per(gr_rows, "bf16_bound_ms"), "bound_by": bound_by(gr_rows),
@@ -2084,7 +2449,32 @@ def main():
          "bound_ms_dense_from_stage_4": per(col_rows, "bf16_bound_ms", "launches_df4"),
          "shapes": brief(col_rows, "launches_per_forward",
                          ("launches_df4", "route", "M", "D", "active_taps",
-                          "active_out_sites", "bf16_fma_ms") + times)},
+                          "active_out_sites", "bf16_fma_ms") + times),
+         # column training (phase 10a, bf16; 10d, float32): forward + dX
+         "launches_train_forms_per_step": {
+             f: {k: v for k, v in r["launches"].items() if k.startswith("column_conv")}
+             for f, r in forms.items() if f.startswith("column")},
+         "launches_train_cli_column_per_step": {
+             k: v for k, v in fcli["second_column"]["train_per_step"].items()
+             if k.startswith("column_conv")},
+         # the dX launches of phase 10a's step at train_dense_from_stage 4
+         # (and 2), counted apart from the forward's; times per launch from
+         # phase 10b at those shapes
+         "launches_dx_per_step": forms["column_df4"]["dx"]["launches"]["column_conv"],
+         "launches_dx_by_route_per_step": {
+             r: forms["column_df4"]["dx"]["launches"][f"column_conv.{r}"]
+             for r in kernels.ROUTES["column_conv"]},
+         "launches_dx_per_step_dense_from_stage_2":
+             forms["column_df2"]["dx"]["launches"]["column_conv"],
+         "max_abs_err_dx": max(r["bf16_max_abs_err"] for r in bw_rows),
+         "ms_dx_per_step": per(bw_rows, "bf16_ms", "launches_dx_column_df4"),
+         "plain_ms_dx_per_step": per(bw_rows, "bf16_plain_ms", "launches_dx_column_df4"),
+         "bound_ms_dx_per_step": per(bw_rows, "bf16_bound_ms", "launches_dx_column_df4"),
+         "ms_fma_route_only_dx_per_step": per(bw_rows, "bf16_fma_ms",
+                                              "launches_dx_column_df4"),
+         "dx_shapes": brief(bw_rows, "launches_dx_column_df4",
+                            ("route", "M", "D", "active_taps", "active_out_sites",
+                             "bf16_fma_ms") + times)},
     ] + [
         {"name": f"zwin_align_{v}", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",

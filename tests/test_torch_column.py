@@ -329,13 +329,36 @@ def test_lite_variant_matches_jax(backend):
 
 
 def test_column_training_is_refused():
-    """Training on the column backend is not ported: it must raise, not run
-    the eval-mode batch norm."""
+    """Training on the column backend is ported (the name is the test's
+    from before, when it raised): in train mode the column batch norms take
+    the batch's statistics, not the running ones, so the BEV map and every
+    running statistic equal those of the train-mode voxel backend on the
+    same voxels and weights (1e-4 of the map's max; statistics to 1e-5)."""
     cfg = small_cfg()
     f, c, m = _middle_inputs(cfg)
-    tst, _ = tscnn.from_voxels_columns(_t(f), _t(c), _t(m), cfg.grid_shape_zyx, 256)
-    with pytest.raises(NotImplementedError):
-        tscnn.SpMiddleFHD(port_cfg(cfg)).train()(tst)
+    grid = cfg.grid_shape_zyx
+    tcol, _ = tscnn.from_voxels_columns(_t(f), _t(c), _t(m), grid, 256)
+    tvox = tscnn.from_voxels(_t(f), _t(c), _t(m), grid)
+    sd = tscnn.SpMiddleFHD(port_cfg(cfg)).state_dict()
+    for k in sd:
+        if k.endswith("weight") and sd[k].dim() == 2:
+            sd[k] = torch.randn(sd[k].shape, generator=torch.Generator().manual_seed(
+                sd[k].shape[0])) * (2.0 / sd[k].shape[0]) ** 0.5
+    out = []
+    for st in (tcol, tvox):
+        tm = tscnn.SpMiddleFHD(port_cfg(cfg))
+        tm.load_state_dict(sd)
+        with torch.no_grad():
+            bev, _ = tm.train()(st)
+        out.append((bev, tm.state_dict()))
+    (bev_c, sd_c), (bev_v, sd_v) = out
+    assert float(bev_v.abs().max()) > 0
+    _bev_close(bev_c, bev_v.numpy())
+    for k, v in sd_v.items():
+        if "running_" in k:
+            assert not torch.equal(v, sd[k]), k
+            np.testing.assert_allclose(sd_c[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
 
 
 def test_lite_state_dict_is_a_subset_and_converts_both_ways(tiny_cfg):

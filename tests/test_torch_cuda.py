@@ -1,6 +1,7 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
 column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
-versions, on the card, and PV-RCNN's inference and training on the card
+versions, on the card, also inside the training autograd functions
+(SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), and PV-RCNN's inference and training on the card
 against the CPU. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
@@ -349,6 +350,76 @@ def test_conv_fn_gradients_card_vs_cpu(dtype, tol, cuda_device):
         res.append([t.detach().cpu() for t in (z, xs.grad, a.grad, b.grad)])
     for got, ref in zip(*res):
         torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=tol)
+
+
+@pytest.mark.parametrize("kernel,stride,pad,c,cout,d", [
+    ((3, 3, 3), (1, 1, 1), (1, 1, 1), 16, 16, 41), ((3, 3, 3), (2, 2, 2), (1, 1, 1), 16, 32, 41),
+    ((3, 3, 3), (2, 2, 2), (0, 1, 1), 64, 64, 12), ((3, 1, 1), (2, 1, 1), (0, 0, 0), 64, 64, 6)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_column_conv_fn_gradients_card_vs_cpu(kernel, stride, pad, c, cout, d, dtype, tol,
+                                              cuda_device):
+    """ColumnConvFn on the card (the column_conv kernel forward and for dX
+    over the transposed rulebook, gather_rows for the dW regather) against
+    the CPU (plain versions, the same decomposition) on a real column
+    plan: the output, dX and dW; 2 column_conv and 1 gather_rows launches."""
+    rng = np.random.default_rng(c + d)
+    hw = (30, 26)
+    kyx, syx, pyx = kernel[1:], stride[1:], pad[1:]
+    keys = np.stack([np.sort(rng.choice(hw[0] * hw[1], 250, replace=False)).astype(np.int32)
+                     for _ in range(2)])
+    keys, mask = torch.from_numpy(keys), torch.ones((2, 250), dtype=torch.bool)
+    out_hw = tuple((hw[i] + 2 * pyx[i] - kyx[i]) // syx[i] + 1 for i in range(2))
+    if kyx == (1, 1):
+        ok, om = keys, mask
+    else:
+        ok, om, _ = tcsp.downsample_bev_columns(keys, mask, hw, kyx, syx, pyx, 400, out_hw)
+    rb = tcsp.build_bev_rulebook_batched(keys, mask, hw, kyx, syx, pyx, ok, om, out_hw)
+    rbt = tcsp.transpose_bev_rulebook_batched(keys, mask, hw, kyx, syx, pyx, ok, om, out_hw)
+    k = kernel[0] * kyx[0] * kyx[1]
+    x = torch.from_numpy((rng.normal(size=(2, 250, d, c))
+                          * (rng.uniform(size=(2, 250, d, 1)) < 0.3)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k * c, cout)) / np.sqrt(k * c)).astype(np.float32))
+    d_out = (d + 2 * pad[0] - kernel[0]) // stride[0] + 1
+    r = torch.from_numpy(rng.normal(size=(2, ok.shape[1], d_out * cout)).astype(np.float32))
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        xs = x.reshape(2, 250, d * c).to(dev).requires_grad_()
+        ws = w.to(dev).requires_grad_()
+        before = (tzw.LAUNCHES["column_conv"], tzw.LAUNCHES["gather_rows"])
+        y = tcc.ColumnConvFn.apply(xs, rb.to(dev), rbt.to(dev), ws, kernel, d, c,
+                                   stride[0], pad[0], dtype)
+        (y * r.to(dev)).sum().backward()
+        launched = (tzw.LAUNCHES["column_conv"] - before[0],
+                    tzw.LAUNCHES["gather_rows"] - before[1])
+        assert launched == ((2, 1) if dev.type == "cuda" else (0, 0))
+        res.append([t.detach().cpu() for t in (y, xs.grad, ws.grad)])
+    for got, ref in zip(*res):
+        assert float(ref.abs().max()) > 0
+        torch.testing.assert_close(got, ref, atol=tol * float(ref.abs().max()), rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densify_fn_card_vs_cpu(dtype, cuda_device):
+    """DensifyFn (the dense cutover's gather and its own-cell backward) on
+    the gather_rows kernel against the plain version: bit-equal both ways,
+    2 launches."""
+    rng = np.random.default_rng(1)
+    own = torch.from_numpy(rng.permutation(5000)[:801].astype(np.int32))
+    live = torch.from_numpy(rng.uniform(size=801) < 0.8)
+    idx = torch.full((5000,), 800, dtype=torch.int32)
+    idx[own[live].long()] = torch.arange(801, dtype=torch.int32)[live]
+    table = torch.from_numpy(rng.normal(size=(801, 64)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(5000, 64)).astype(np.float32)).to(dtype)
+    res = []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = table.to(dev).requires_grad_()
+        before = tzw.LAUNCHES["gather_rows"]
+        out = tsp.DensifyFn.apply(t, idx.to(dev), own.to(dev), live.to(dev))
+        out.backward(g.to(dev))
+        assert tzw.LAUNCHES["gather_rows"] - before == (2 if dev.type == "cuda" else 0)
+        res.append((out.detach().cpu(), t.grad.cpu()))
+    for got, ref in zip(*res):
+        assert torch.equal(got, ref)
 
 
 def _cc_case(c, cout, d, kernel, seed, dev, b=2, n=200, m=531, sparse_z=True):

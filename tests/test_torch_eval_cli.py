@@ -305,17 +305,37 @@ def test_bev_drawer_matches_jax(monkeypatch):
 
 
 def test_clis_refuse_what_is_not_ported(trained, tmp_path):
-    """Dense late training stages are not ported; eval_cli runs PV-RCNN
-    (tests/test_torch_pvrcnn.py) but refuses to load SECOND's weights into
-    it. (PV-RCNN training is ported: tests/test_torch_pvrcnn_train.py.)"""
+    """eval_cli runs PV-RCNN (tests/test_torch_pvrcnn.py) but refuses to load
+    SECOND's weights into it. Dense late stages in training are ported:
+    train_cli --dense-from 2 trains an epoch and writes its checkpoint."""
     yml = str(trained[0])
     with pytest.raises(ValueError, match="not a PV-RCNN"):
         eval_cli.main(["--config", yml, "--model", "pvrcnn", "--weights", str(WEIGHTS),
                        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="dense late stages"):
-        train_cli.main(["--config", yml, "--dense-from", "2", "--batch-size", "2",
-                        "--workers", "0", "--epochs", "1", "--ckpt-dir", str(tmp_path),
-                        "--metrics-jsonl", str(tmp_path / "m.jsonl"), "--device", "cpu"])
+    recs = train_cli.main(["--config", yml, "--dense-from", "2", "--batch-size", "2",
+                           "--workers", "0", "--epochs", "1", "--ckpt-dir", str(tmp_path),
+                           "--metrics-jsonl", str(tmp_path / "m.jsonl"), "--device", "cpu"])
+    assert len(recs) == 1 and recs[0]["steps"] == 1 and np.isfinite(recs[0]["losses"]).all()
+    assert os.path.isfile(recs[0]["checkpoint"])
+
+
+def test_train_cli_on_a_column_backend_yaml(trained, tmp_path):
+    """A yaml with ``SPARSE_BACKEND: column`` trains on the column backend,
+    as the JAX package's train_cli does (no flag), and its checkpoint
+    evaluates on the voxel backend: one state dict serves both."""
+    yml, root, _, _ = trained
+    doc = yaml.safe_load(yml.read_text())
+    doc["SPARSE_BACKEND"] = "column"
+    col = tmp_path / "column.yaml"
+    col.write_text(yaml.safe_dump(doc))
+    recs = train_cli.main(["--config", str(col), "--batch-size", "2", "--workers", "0",
+                           "--epochs", "1", "--ckpt-dir", str(tmp_path / "ck"),
+                           "--metrics-jsonl", str(tmp_path / "m.jsonl"), "--device", "cpu"])
+    assert len(recs) == 1 and recs[0]["steps"] == 1 and np.isfinite(recs[0]["losses"]).all()
+    table, timing = eval_cli.main(["--config", str(yml), "--ckpt", recs[0]["checkpoint"],
+                                   "--batch-size", "2", "--device", "cpu"])
+    assert timing["frames"] == 2
+    assert all(0.0 <= v <= 100.0 for row in table.values() for v in row.values())
 
 
 def test_tensorboard_writer(tmp_path):

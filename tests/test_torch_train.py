@@ -253,9 +253,24 @@ def test_fresh_init_statistics(tiny_cfg):
 
 
 def test_dense_late_training_stages_are_not_ported(tiny_cfg):
-    cfg = port_cfg(tiny_cfg.replace(train_dense_from_stage=2))
-    model, tx, state = ttrain.create_train_state(cfg, device="cpu")
+    """Dense late stages in training are ported (the name is the test's
+    from before): a step at ``train_dense_from_stage = 2`` runs stages 2-3
+    as dense masked volumes and matches the all-sparse step at 4 from the
+    same weights, the loss to 1e-5 relative and every gradient to 1e-4 of
+    its tensor's max (tests/test_torch_train_backends.py holds both against
+    JAX)."""
     batch = {k: torch.from_numpy(np.array(v)) for k, v in
              synthetic_train_batch(tiny_cfg, np.random.default_rng(0)).items()}
-    with pytest.raises(NotImplementedError):
-        ttrain.make_train_step(model, tx, cfg)(state, batch)
+    runs = []
+    for dense_from in (2, 4):
+        cfg = port_cfg(tiny_cfg.replace(train_dense_from_stage=dense_from))
+        model, tx, state = ttrain.create_train_state(cfg, device="cpu")
+        state, out = ttrain.make_train_step(model, tx, cfg)(state, batch)
+        runs.append((float(out["loss"]), set(state.diagnostics),
+                     {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (l2, d2, g2), (l4, d4, g4) = runs
+    np.testing.assert_allclose(l2, l4, rtol=1e-5)
+    assert d2 == {"voxelizer_dropped", "stage1_dropped", "stage2_dropped"} and d2 < d4
+    for name, r in g4.items():
+        np.testing.assert_allclose(g2[name].numpy(), r.numpy(), rtol=0,
+                                   atol=1e-4 * float(r.abs().max()), err_msg=name)

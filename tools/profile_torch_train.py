@@ -12,7 +12,11 @@ synthetic points with 32 ground-truth boxes per frame, fresh seeded init
     --iters steps, the device kernel time per step and its share of the
     unprofiled p50.
 
-    python tools/profile_torch_train.py [--iters 3]
+    python tools/profile_torch_train.py [--iters 3] [--backend {voxel,column}]
+        [--dense-from-stage N]
+
+``--backend`` and ``--dense-from-stage`` (``cfg.train_dense_from_stage``,
+default 4: every stage sparse) pick the training form.
 """
 
 import argparse
@@ -29,9 +33,9 @@ sys.path.insert(0, str(ROOT))
 from vision3d_tpu_torch.config import Config  # noqa: E402
 from vision3d_tpu_torch.core.anchors import make_anchors  # noqa: E402
 from vision3d_tpu_torch.core.targets import assign_targets_batch  # noqa: E402
-from vision3d_tpu_torch.core.voxelize import mean_vfe, voxelize_batch  # noqa: E402
+from vision3d_tpu_torch.core.voxelize import voxelize_batch  # noqa: E402
 from vision3d_tpu_torch.models.losses import proposal_loss  # noqa: E402
-from vision3d_tpu_torch.models.sparse_cnn import from_voxels  # noqa: E402
+from vision3d_tpu_torch.models.second import build_middle_input  # noqa: E402
 from vision3d_tpu_torch.synthetic import kitti_like_train_batch  # noqa: E402
 from vision3d_tpu_torch.training.train import create_train_state, make_train_step  # noqa: E402
 
@@ -54,11 +58,10 @@ def parts(model, tx, state, batch, anchors):
     mark("target assignment")
     tx.zero_grad()
     vox = voxelize_batch(batch["points"], batch["num_points"], cfg)
-    st = from_voxels(mean_vfe(vox["features"], vox["occupancy"]), vox["coords"],
-                     vox["voxel_mask"], cfg.grid_shape_zyx)
+    st, _ = build_middle_input(cfg, vox)
     mark("voxelize+vfe+sort")
     bev, _ = model.cnn(st)
-    mark("middle forward (plans, gather_gemm convs, masked BN, to_bev)")
+    mark("middle forward (plans, sparse convs, densify, dense convs, masked BN, to_bev)")
     cls_map, reg_map = model.head(model.rpn(bev.permute(0, 3, 1, 2).float()))
     mark("rpn+head forward")
     loss = proposal_loss(cls_map, reg_map, targets, cfg)["loss"]
@@ -76,13 +79,16 @@ def parts(model, tx, state, batch, anchors):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--backend", default="voxel", choices=["voxel", "column"])
+    ap.add_argument("--dense-from-stage", type=int, default=4)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     cfg = Config.from_yaml(str(ROOT / "configs/second/all_classes.yaml")).replace(
-        compute_dtype="bfloat16")
+        compute_dtype="bfloat16", sparse_backend=args.backend,
+        train_dense_from_stage=args.dense_from_stage)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in kitti_like_train_batch(0, 8, 18000, cfg=cfg).items()}
     model, tx, state = create_train_state(cfg, torch.Generator().manual_seed(0),

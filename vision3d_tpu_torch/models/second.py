@@ -11,9 +11,10 @@ the device: ``voxelizer_dropped``, and on the voxel backend
 ``stage1_dropped``, ``stage2_dropped``, ``stage2_densify_dropped``, on
 the column backend ``stage0_columns_dropped`` and one
 ``stage{i}_columns_dropped`` per sparse stage. In training mode
-(``model.train()``, voxel backend only) the middle extractor runs fully
-sparse and the counters are ``voxelizer_dropped`` and
-``stage{1..4}_dropped``.
+(``model.train()``, either backend) the stages before
+``cfg.train_dense_from_stage`` run sparse, and the voxel backend's
+counters are ``voxelizer_dropped`` and one ``stage{i}_dropped`` per
+sparse stage (its training cutover has no column cap).
 """
 
 import math

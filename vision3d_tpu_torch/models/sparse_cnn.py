@@ -1,6 +1,6 @@
 """SpMiddleFHD sparse middle extractors (port of
 ``vision3d_tpu/models/sparse_cnn.py``): the voxel, column and dense
-representations for inference, the voxel one for training.
+representations, for inference and for training.
 
 Four blocks of submanifold + strided convs take voxel features at grid
 (41, 1600, 1408) ZYX down to (2, 200, 176), then collapse z into a
@@ -8,18 +8,22 @@ Four blocks of submanifold + strided convs take voxel features at grid
 Stages before ``cfg.dense_from_stage`` run sparse (key-sorted tensors,
 z-window rulebooks, the ``zwin_conv`` CUDA kernel); later stages run as
 dense masked volumes with cuDNN conv3d, exact spconv semantics recovered
-by masking to the active set. In training mode (``module.training``) all
-four stages run sparse on full-tap rulebooks (``cfg.train_dense_from_stage
-= 4``): every conv is the ``gather_gemm`` CUDA kernel, forward and dX, and
-dW regathers its columns with the ``gather_rows`` kernel.
+by masking to the active set. In training mode (``module.training``) the
+stages before ``cfg.train_dense_from_stage`` (default 4: all of them) run
+sparse on full-tap rulebooks: every conv is the ``gather_gemm`` CUDA
+kernel, forward and dX, and dW regathers its columns with the
+``gather_rows`` kernel; the cutover to the dense stages is one all-cells
+row gather whose backward is one gather (``dense_from_sparse``), and the
+dense convs train by autograd through cuDNN.
 
 With ``cfg.sparse_backend = "column"`` the input is a ``ColumnTensor``
 (sparse in BEV, dense in z, ``ops/column_sparse.py``): the sparse stages
 run BEV-column rulebooks and the ``column_conv`` CUDA kernel, and the
 cutover to the dense stages is one row gather (``dense_from_columns``).
-The parameters are the same whatever the representation, so one state
-dict serves both backends. Inference only: training on columns is not
-ported.
+The column convs are ``ops.column_conv.ColumnConvFn``, whose backward
+runs dX on the ``column_conv`` kernel over the transposed BEV rulebook
+and dW by a ``gather_rows`` regather and one GEMM. The parameters are the same
+whatever the representation, so one state dict serves both backends.
 
 Layouts: a ``SparseTensor`` is (B, N, C); a ``ColumnTensor`` holds flat
 z-major (B, Ncol, D*C) rows; a ``DenseTensor`` holds feats
@@ -38,7 +42,7 @@ from torch import nn
 from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
-from vision3d_tpu_torch.ops.column_conv import column_conv
+from vision3d_tpu_torch.ops.column_conv import ColumnConvFn
 from vision3d_tpu_torch.ops.zwin_conv import zwin_conv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -119,7 +123,10 @@ def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
     slot map, then every cell fetches its column's flat (D*C) row (a miss
     reads a zero row), and one transpose into the z-major
     channels-last-3d layout (``dense_from_columns``,
-    vision3d_tpu/models/sparse_cnn.py:270, without its ``keep_keys``)."""
+    vision3d_tpu/models/sparse_cnn.py:270, without its ``keep_keys``).
+    Where the rows take a gradient, the fetch is ``sp.DensifyFn`` on the
+    ``gather_rows`` kernel: each column row is read by one cell, its own,
+    so its gradient is one gather there."""
     d, h, w = ct.grid
     b, n, _ = ct.feats.shape
     hw, c = h * w, ct.c
@@ -129,12 +136,51 @@ def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
                   torch.arange(n, device=dev).expand(b, n))
     slot = (slot[:, :hw] + torch.arange(b, device=dev)[:, None] * (n + 1)).reshape(-1)
     table = F.pad(ct.feats, (0, 0, 0, 1)).reshape(b * (n + 1), d * c)
-    feats = table[slot].reshape(b, h, w, d, c).permute(0, 4, 3, 1, 2)
+    if torch.is_grad_enabled() and table.requires_grad:
+        own = torch.where(ct.mask, ct.keys, 0) + torch.arange(b, device=dev)[:, None] * hw
+        rows = sp.DensifyFn.apply(table, slot.to(torch.int32),
+                                  F.pad(own, (0, 1)).reshape(-1).to(torch.int32),
+                                  F.pad(ct.mask, (0, 1)).reshape(-1))
+    else:
+        rows = table[slot]
+    feats = rows.reshape(b, h, w, d, c).permute(0, 4, 3, 1, 2)
     zt = F.pad(ct.zmask, (0, 0, 0, 1)).reshape(b * (n + 1), d)
     occ = zt[slot].reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
     return DenseTensor(
         feats=feats.contiguous(memory_format=torch.channels_last_3d),
         occ=occ, grid=ct.grid)
+
+
+def dense_from_sparse(st: SparseTensor, keep_keys: bool = False) -> DenseTensor:
+    """Densify a sparse tensor for the dense late stages of TRAINING, by
+    one all-cells row gather (``dense_from_sparse``,
+    vision3d_tpu/models/sparse_cnn.py:197): no column cap, no drop count.
+    Each cell's source row is the row whose key is that cell (keys are
+    unique), or the zero row N; the JAX code finds it from CSR records
+    (colstart + popcount), here a scatter of row numbers into a z-major
+    raster of the cells finds the same row. The gather is ``sp.DensifyFn``
+    (the ``gather_rows`` kernel), whose backward is one gather at each
+    row's own cell. ``keep_keys`` carries the input's keys and mask along."""
+    d, h, w = st.grid
+    b, n, c = st.feats.shape
+    cells = d * h * w
+    dev = st.feats.device
+    k = torch.where(st.mask, st.keys, 0)
+    own = (k % d) * (h * w) + k // d                      # z-major raster cell
+    idx = torch.full((b, cells + 1), n, dtype=torch.int32, device=dev)
+    idx.scatter_(1, torch.where(st.mask, own, cells).long(),
+                 torch.arange(n, dtype=torch.int32, device=dev).expand(b, n))
+    idx = idx[:, :cells]
+    occ = (idx < n).reshape(b, d, h, w)
+    bidx = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    table = F.pad(st.feats, (0, 0, 0, 1)).reshape(b * (n + 1), c)
+    rows = sp.DensifyFn.apply(table, (idx + bidx * (n + 1)).reshape(-1),
+                              F.pad(own + bidx * cells, (0, 1)).reshape(-1).to(torch.int32),
+                              F.pad(st.mask, (0, 1)).reshape(-1))
+    feats = rows.reshape(b, d, h, w, c).permute(0, 4, 1, 2, 3)
+    return DenseTensor(feats=feats, occ=occ, grid=st.grid,
+                       keys=st.keys if keep_keys else None,
+                       mask=st.mask if keep_keys else None)
 
 
 def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int,
@@ -235,11 +281,27 @@ def _column_bn_relu(bn, out, site, cdt):
     """Masked BN + ReLU on the flat (B, N, D*C) f32 rows of a column conv,
     zeroed off the active sites (B, N, D) and rounded to the compute dtype
     (``MaskedBatchNormFlat`` with the parameters of ``MaskedBatchNorm``,
-    vision3d_tpu/models/sparse_cnn.py:421, :506-510)."""
-    if bn.training:
-        raise NotImplementedError("training on the column backend is not ported")
+    vision3d_tpu/models/sparse_cnn.py:421, :506-510). In training mode the
+    statistics are ``MaskedBatchNormFlat``'s (:443-453): the masked mean
+    over the sites of (B, N, D) (count clamped to 1) and the one-pass
+    variance max(E[x^2] - mean^2, 0), which also feed the running update
+    at momentum 0.01; then x * g + (bias - mean * g), g = weight /
+    sqrt(var + eps)."""
     b, n, d = site.shape
-    y = bn(out.reshape(b, n, d, -1), site)
+    x = out.reshape(b, n, d, -1)
+    if bn.training:
+        w = site[..., None].to(x.dtype)
+        cnt = site.sum().to(x.dtype).clamp(min=1.0)
+        xm = x * w
+        mean = xm.sum(dim=(0, 1, 2)) / cnt
+        var = ((xm * x).sum(dim=(0, 1, 2)) / cnt - mean.square()).clamp(min=0.0)
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean, bn.momentum)
+            bn.running_var.lerp_(var, bn.momentum)
+        g = torch.rsqrt(var + bn.eps) * bn.weight
+        y = x * g + (bn.bias - mean * g)
+    else:
+        y = bn(x, site)
     y = torch.where(site[..., None], F.relu(y), 0.0).to(cdt)
     return y.reshape(b, n, -1)
 
@@ -262,8 +324,9 @@ class SubMConv(nn.Module):
             out = torch.where(x.occ[:, None], F.relu(out), 0.0).to(self.cdt)
             return replace(x, feats=out)
         if isinstance(x, ColumnTensor):
-            out = column_conv(x.feats, rb, self.weight, self.kernel, x.grid[0],
-                              x.c, 1, self.kernel[0] // 2, self.cdt)
+            # a subm conv's rulebook is its own transpose: dX runs over it
+            out = ColumnConvFn.apply(x.feats, rb, rb, self.weight, self.kernel,
+                                     x.grid[0], x.c, 1, self.kernel[0] // 2, self.cdt)
             site = x.zmask & x.mask[..., None]
             return replace(x, feats=_column_bn_relu(self.bn, out, site, self.cdt),
                            c=self.weight.shape[1])
@@ -335,8 +398,12 @@ class SparseConvDown(nn.Module):
                 x.keys, x.mask, in_hw, kyx, syx, pyx, self.out_col_cap, out_hw)
         rb = csp.build_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
                                             out_keys=ok, out_mask=om, out_hw=out_hw)
-        of = column_conv(x.feats, rb, self.weight, self.kernel, x.grid[0], x.c,
-                         self.stride[0], self.pad[0], self.cdt)
+        # the transposed rulebook only serves the backward's dX
+        rbt = (csp.transpose_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
+                                                  ok, om, out_hw)
+               if torch.is_grad_enabled() and x.feats.requires_grad else None)
+        of = ColumnConvFn.apply(x.feats, rb, rbt, self.weight, self.kernel, x.grid[0],
+                                x.c, self.stride[0], self.pad[0], self.cdt)
         oz = csp.column_occupancy_batched(x.zmask, rb, self.kernel, self.stride[0],
                                           self.pad[0])
         site = oz & om[..., None]
@@ -416,13 +483,18 @@ class SpMiddleFHD(nn.Module):
         ]
 
     def forward(self, st, need_scales: bool = False):
-        """st: a SparseTensor or (inference only) a ColumnTensor. Returns
-        (bev (B, H, W, C*D), diagnostics {name: (B,) int32}). In training
-        mode every stage is sparse and planned with
-        ``sp.plan_stage_train_batched``; ``stage{1..4}_dropped`` count
-        the active output sites each stage's capacity truncated. On a
-        ColumnTensor ``stage{1..4}_columns_dropped`` count the active
-        output columns each sparse stage's column capacity truncated.
+        """st: a SparseTensor or a ColumnTensor. Returns (bev (B, H, W,
+        C*D), diagnostics {name: (B,) int32}). The stages from
+        ``cfg.dense_from_stage`` on (in training mode
+        ``cfg.train_dense_from_stage``) run dense. In training mode the
+        sparse voxel stages are planned with ``sp.plan_stage_train_batched``
+        and the cutover is ``dense_from_sparse`` (no column cap);
+        ``stage{1..}_dropped`` count the active output sites each sparse
+        stage's capacity truncated, and in inference
+        ``stage{i}_densify_dropped`` the sites the cutover's column cap
+        dropped. On a ColumnTensor ``stage{1..}_columns_dropped`` count
+        the active output columns each sparse stage's column capacity
+        truncated.
 
         ``need_scales`` (PV-RCNN's set abstraction, voxel backend only)
         returns (bev, diagnostics, scales) with the four SparseTensors at
@@ -434,16 +506,14 @@ class SpMiddleFHD(nn.Module):
         cfg = self.cfg
         dense_from = (cfg.train_dense_from_stage if self.training
                       else cfg.dense_from_stage)
-        if self.training and dense_from < len(self.down):
-            raise NotImplementedError(
-                "training with dense late stages (train_dense_from_stage "
-                f"= {dense_from} < 4) is not ported")
         diag = {}
         x = st
         scales = [st]
         li = 0
         for si, (chans, spec) in enumerate(self.block_specs()):
-            if si >= dense_from and isinstance(x, SparseTensor):
+            if si >= dense_from and isinstance(x, SparseTensor) and self.training:
+                x = dense_from_sparse(x, keep_keys=need_scales)
+            elif si >= dense_from and isinstance(x, SparseTensor):
                 x, cdrop = dense_from_sparse_cols(
                     x, cfg.stage_column_capacity(si), keep_keys=need_scales)
                 diag[f"stage{si}_densify_dropped"] = cdrop

@@ -20,7 +20,16 @@ launch raises.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``ops.column_sparse.column_conv_dz``); on a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES["column_conv"]`` counts the wrapper's
+kernel or raises.
+
+Training (``ColumnConvFn``) runs the backward on the same kernels, not by
+autograd through the plain version: dX is the ``column_conv`` kernel over
+the transposed BEV rulebook (``column_sparse.transpose_bev_rulebook_batched``)
+with the weights flipped in (dz, k2) and transposed in (C, Cout), on the
+gradient rows zero-interleaved in z for ``stride_z`` 2, at ``pad_z' =
+kz-1-pad_z``; dW regathers the K2 neighbour columns with the
+``gather_rows`` kernel and takes one GEMM (``ops.sparse.matmul_f32``). On
+the CPU the same decomposition runs on the plain versions. ``LAUNCHES["column_conv"]`` counts the wrapper's
 launches (one a call, though "mma" enqueues a row-mask pass before its
 kernel), ``LAUNCHES["column_conv.mma"]`` and ``["column_conv.fma"]`` those
 of each route.
@@ -29,10 +38,13 @@ of each route.
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from vision3d_tpu_torch import kernels
 from vision3d_tpu_torch.ops import column_sparse as csp
+from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops.gather_gemm import aligned16, pick_route
+from vision3d_tpu_torch.ops.gather_rows import gather_rows
 
 LAUNCHES = kernels.LAUNCHES
 ROUTES = kernels.ROUTES["column_conv"]
@@ -129,3 +141,91 @@ def column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z=1, pad_z=0,
             ROUTES.index(route), cols_per_block(d_out),
             torch.cuda.current_stream().cuda_stream, route=route)
     return out
+
+
+def interleave_z(g, d_in, kz, stride_z, pad_z, cout):
+    """The gradient rows (B, M, D_out*Cout) of a conv with ``stride_z`` as
+    the rows of a stride-1 conv's output: row zo moves to z = zo*stride_z,
+    zeros between, and zeros at the end up to D' = D_in + 2*pad_z - kz + 1
+    (where the forward's floor division dropped input rows).
+    Returns (B, M, D'*Cout), contiguous."""
+    b, m, _ = g.shape
+    d_out = g.shape[2] // cout
+    d_full = d_in + 2 * pad_z - kz + 1
+    if stride_z == 1:
+        return g
+    gi = g.new_zeros((b, m, d_full, cout))
+    gi[:, :, :(d_out - 1) * stride_z + 1:stride_z] = g.reshape(b, m, d_out, cout)
+    return gi.reshape(b, m, d_full * cout)
+
+
+def column_conv_dx(g, rbt_idx, weight, kernel, d, c, stride_z, pad_z,
+                   compute_dtype):
+    """dX (B, N, D*C) float32 of a column conv: the ``column_conv`` kernel
+    on the z-interleaved gradient rows, over the transposed rulebook
+    ``rbt_idx`` (B, N*K2) (misses = M), with the flipped, transposed
+    weights, stride 1 and ``pad_z' = kz-1-pad_z``."""
+    kz = kernel[0]
+    cout = weight.shape[1]
+    pad_t = kz - 1 - pad_z
+    if pad_t < 0:
+        raise ValueError(f"column_conv_dx: pad_z {pad_z} > kz-1 = {kz - 1}")
+    gi = interleave_z(g, d, kz, stride_z, pad_z, cout)
+    wt = sp.flip_transpose_weight(weight, c)
+    return column_conv(gi.to(compute_dtype), rbt_idx, wt, kernel,
+                       gi.shape[2] // cout, cout, 1, pad_t, compute_dtype)
+
+
+def column_conv_dw(col_feats, rb_idx, g, kernel, d, c, stride_z, pad_z,
+                   compute_dtype):
+    """dW (kz*K2*C, Cout) float32 of a column conv: the K2 neighbour
+    columns regathered (``gather_rows``) from the z-padded
+    (B*(N+1), (D + 2*pad_z)*C) table, their kz-windows per output z, and
+    one GEMM against the gradient rows, as ``conv_rb_dw`` does for voxels."""
+    b, n, _ = col_feats.shape
+    kz, ky, kx = kernel
+    k2 = ky * kx
+    m = rb_idx.shape[1] // k2
+    cout = g.shape[2] // csp.conv_out_depth(d, kz, stride_z, pad_z)
+    dp = d + 2 * pad_z
+    table = F.pad(col_feats.to(compute_dtype).reshape(b, n, d, c),
+                  (0, 0, pad_z, pad_z, 0, 1)).reshape(b * (n + 1), dp * c)
+    base = torch.arange(b, dtype=torch.int32, device=col_feats.device)[:, None] * (n + 1)
+    cols = gather_rows(table, (rb_idx + base).reshape(-1)).reshape(b * m, k2, dp, c)
+    # (B*M, K2, D_out, C, kz) -> rows (site, zo), columns (k2, dz, c)
+    win = cols.unfold(2, kz, stride_z).permute(0, 2, 1, 4, 3)
+    a = win.reshape(-1, k2 * kz * c)
+    dw = sp.matmul_f32(a, g.reshape(a.shape[0], cout).to(compute_dtype))
+    return dw.reshape(k2, kz, c, cout).transpose(0, 1).reshape(kz * k2 * c, cout)
+
+
+class ColumnConvFn(torch.autograd.Function):
+    """Column conv f(col_feats, rb, rbt, weight, kernel, d, c, stride_z,
+    pad_z, compute_dtype) -> (B, M, D_out*Cout) float32 (``column_conv``)
+    whose backward is ``column_conv_dx`` over the transposed rulebook
+    ``rbt`` and ``column_conv_dw`` (a submanifold conv passes its forward
+    rulebook as ``rbt``; ``rbt`` may be None where ``col_feats`` takes no
+    gradient). The JAX package differentiates
+    ``column_conv_dz`` (vision3d_tpu/ops/column_sparse.py:105) by
+    autodiff; the gradients are the same function. No gradient to the
+    rulebooks."""
+
+    @staticmethod
+    def forward(ctx, col_feats, rb_idx, rbt_idx, weight, kernel, d, c,
+                stride_z, pad_z, compute_dtype):
+        ctx.save_for_backward(col_feats, rb_idx, rbt_idx, weight)
+        ctx.conv = (kernel, d, c, stride_z, pad_z, compute_dtype)
+        return column_conv(col_feats, rb_idx, weight, kernel, d, c, stride_z,
+                           pad_z, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        col_feats, rb_idx, rbt_idx, weight = ctx.saved_tensors
+        conv = ctx.conv
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = column_conv_dx(g, rbt_idx, weight, *conv).to(col_feats.dtype)
+        if ctx.needs_input_grad[3]:
+            dw = column_conv_dw(col_feats, rb_idx, g, *conv).to(weight.dtype)
+        return (dx, None, None, dw) + (None,) * 6

@@ -102,6 +102,35 @@ def build_bev_rulebook_batched(col_keys, col_mask, hw, kernel_yx,
     return torch.where(ok, sp.lookup_rows(col_keys, nkey, n), n).to(torch.int32)
 
 
+def transpose_bev_rulebook_batched(col_keys, col_mask, hw, kernel_yx,
+                                   stride_yx, pad_yx, out_keys, out_mask, out_hw):
+    """Transpose of ``build_bev_rulebook_batched``'s rulebook, the K2 BEV
+    taps in REVERSED order: entry (i, K2-1-k2) is the output column (its
+    slot in ``out_keys``) that reads input column i at BEV offset k2,
+    o = (i + pad - offset)/stride, or M where the stride does not divide,
+    o is out of the grid or o is inactive. Returns (B, N*K2) int32 in
+    [0, M]. The dX of a column conv is a column conv over this rulebook
+    (``ops/column_conv.py``); for a submanifold conv (stride 1, a
+    symmetric window) it equals the forward rulebook."""
+    b, n = col_keys.shape
+    m = out_keys.shape[1]
+    w = hw[1]
+    oh, ow = out_hw
+    dev = col_keys.device
+    y = torch.where(col_mask, col_keys // w, 0)[..., None]
+    x = torch.where(col_mask, col_keys % w, 0)[..., None]
+    offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32, device=dev)
+    ty = y + pad_yx[0] - offs[:, 0]                                # (B, N, K2)
+    tx = x + pad_yx[1] - offs[:, 1]
+    oy = torch.div(ty, stride_yx[0], rounding_mode="floor")
+    ox = torch.div(tx, stride_yx[1], rounding_mode="floor")
+    ok = ((ty % stride_yx[0] == 0) & (tx % stride_yx[1] == 0) & (oy >= 0)
+          & (oy < oh) & (ox >= 0) & (ox < ow) & col_mask[..., None]).reshape(b, -1)
+    okey = torch.where(ok, (oy * ow + ox).reshape(b, -1), oh * ow)
+    rows = torch.where(ok, sp.lookup_rows(out_keys, okey, m), m)
+    return rows.reshape(b, n, -1).flip(-1).reshape(b, -1).to(torch.int32).contiguous()
+
+
 def downsample_bev_columns(col_keys, col_mask, hw, kernel_yx, stride_yx,
                            pad_yx, out_cap, out_hw):
     """Active output column set of a BEV-strided conv, batched: candidates

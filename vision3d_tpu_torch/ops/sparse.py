@@ -491,6 +491,34 @@ class DownConvFn(torch.autograd.Function):
         return dx, None, None, dw, None
 
 
+class DensifyFn(torch.autograd.Function):
+    """All-cells row gather f(table, idx, self_pos, live) -> (Q, C): output
+    row q is ``table[idx[q]]``, with the gather-as-backward of
+    ``densify_gather`` (vision3d_tpu/ops/sparse.py:1808): every live table
+    row is read by exactly one output row, its own cell ``self_pos``, so
+    its gradient is one gather of the output gradient there (zero at rows
+    that are not ``live``), not a cells-sized scatter-add. Both directions
+    run on the ``gather_rows`` kernel.
+
+    table (R, C) float32 or bfloat16; idx (Q,) int32 in [0, R); self_pos
+    (R,) int32 in [0, Q) (any value at rows that are not live); live (R,)
+    bool. No gradient to the indices."""
+
+    @staticmethod
+    def forward(ctx, table, idx, self_pos, live):
+        _, gather_rows = _kernel_wrappers()
+        ctx.save_for_backward(self_pos, live)
+        return gather_rows(table, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, gather_rows = _kernel_wrappers()
+        self_pos, live = ctx.saved_tensors
+        pos = torch.where(live, self_pos, 0).contiguous()
+        dt = torch.where(live[:, None], gather_rows(g.contiguous(), pos), 0.0)
+        return dt, None, None, None
+
+
 def to_dense(feats, keys, mask, grid):
     """Scatter a batched sparse tensor to a dense (B, D, H, W, C) volume
     (``to_dense``, vision3d_tpu/ops/sparse.py:193). Active keys are

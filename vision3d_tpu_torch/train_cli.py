@@ -18,9 +18,12 @@ unless ``--device cpu``.
 A two-stage step draws its grid points and random background keypoints
 from a CPU generator seeded from (``--seed``, step).
 
-Not ported yet: several cards (the JAX package's device mesh) and dense
-late stages in training (``--dense-from`` below 4 raises in the model,
-ROADMAP A9b).
+``--dense-from 2`` or ``3`` (``cfg.train_dense_from_stage``) trains the
+late stages as dense masked volumes (cuDNN conv3d), for every ``--model``;
+a yaml with ``SPARSE_BACKEND: column`` trains on the column backend (BEV
+columns dense in z), also with ``--dense-from``. Not ported yet: several
+cards (the JAX package's device mesh, ROADMAP A14) and PV-RCNN on the
+column backend (A16).
 """
 
 import argparse
@@ -32,7 +35,8 @@ import numpy as np
 
 def main(argv=None):
     """Returns one record per epoch run: steps, seconds, frames/s, host
-    wait, the loss of every step and the checkpoint written (or None)."""
+    wait, the card's peak memory (None on the CPU), the loss of every step
+    and the checkpoint written (or None)."""
     from vision3d_tpu_torch.eval_cli import add_data_args, with_data_overrides
 
     ap = argparse.ArgumentParser()
@@ -49,8 +53,10 @@ def main(argv=None):
     ap.add_argument("--model", default="second",
                     choices=["second", "pvrcnn", "pvrcnn2"])
     ap.add_argument("--dense-from", type=int, default=None,
-                    help="cfg.train_dense_from_stage override; the default 4 "
-                         "trains every stage sparse")
+                    help="cfg.train_dense_from_stage override: the stages from "
+                         "this one on train as dense conv3d volumes; the "
+                         "default 4 trains every stage sparse. Checkpoints "
+                         "evaluate at any setting")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -98,6 +104,8 @@ def main(argv=None):
     records = []
     try:
         for epoch in range(start_epoch, cfg.train.epochs):
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
             t_epoch = time.perf_counter()
             t_host = 0.0
             losses_seen = []
@@ -111,12 +119,15 @@ def main(argv=None):
                 losses_seen.append(losses["loss"])
                 logger.update(state.step, losses)
                 t0 = time.perf_counter()
+            peak = None
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
+                peak = torch.cuda.max_memory_allocated(device)
             dt = time.perf_counter() - t_epoch
             n_frames = steps_per_epoch * cfg.train.batch_size
             print(f"epoch {epoch}: {dt:.1f}s ({n_frames / dt:.1f} frames/s; "
-                  f"host wait {t_host:.1f}s = {t_host / dt:.0%})", flush=True)
+                  f"host wait {t_host:.1f}s = {t_host / dt:.0%})"
+                  + (f"; peak memory {peak / 2**30:.2f} GiB" if peak else ""), flush=True)
             path = None
             # save after every ckpt_interval_epochs-th epoch and the last one
             if ((epoch + 1) % cfg.train.ckpt_interval_epochs == 0
@@ -125,7 +136,7 @@ def main(argv=None):
                 print(f"saved {path}")
             records.append(dict(epoch=epoch, steps=len(losses_seen), seconds=dt,
                                 frames_per_s=n_frames / dt, host_wait_s=t_host,
-                                losses=losses_seen, checkpoint=path))
+                                peak_mem_bytes=peak, losses=losses_seen, checkpoint=path))
     finally:
         loader.close()
     return records
