@@ -6,8 +6,9 @@ and on the column backend, takes training steps of the same model from a
 fresh seeded init, trains, evaluates and draws through the
 command-line entry points on a synthetic KITTI-format set, runs
 PV-RCNN inference, one stage and two, at full width and through eval_cli,
-trains PV-RCNN in both modes at full width and through train_cli, and
-trains SECOND with dense late stages and on the column backend.
+trains PV-RCNN in both modes at full width and through train_cli, trains
+SECOND with dense late stages and on the column backend, runs and trains
+PV-RCNN on the column backend, and trains on several ranks.
 
     python3 chip_smoke.py
 
@@ -139,7 +140,28 @@ Phases, each printing lines before the last:
      7's 16 train frames with --dense-from 2, on a yaml that sets
      SPARSE_BACKEND: column and with --model pvrcnn2 --dense-from 2, then
      eval_cli --ckpt of each checkpoint: launches per step and per batch,
-     finite losses, frames/s, finite AP tables (no gate).
+     finite losses, frames/s, finite AP tables (no gate);
+ 11. PV-RCNN on the column backend and training on several ranks: (a) at
+     full width, bf16, batch 8 x 18,000 points, phase 8's weights loaded
+     into a column model: inference, one stage and two, at
+     dense_from_stage 2 (6 column_conv per forward, 5 on the tensor-core
+     route; counters 0, 2048 distinct keypoints per frame, finite point
+     features, p50 and peak memory), then training steps of both modes at
+     train_dense_from_stage 4 and 2 from a fresh seeded init, as phase 9a
+     with launches by kernel and route (PV_COLUMN_TRAIN), the column dX
+     launches apart and every gather_rows launch against its plain
+     version; (b) at small geometry in float32 with TF32 off, card against
+     CPU on columns: two-stage inference as phase 8b and one two-stage
+     training step as phase 9b; (c) train_cli --model pvrcnn2 on a yaml
+     that sets SPARSE_BACKEND: column for one epoch of phase 7's 16 train
+     frames, then eval_cli --ckpt of its checkpoint (no AP gate); (d) two
+     ranks on the one card over gloo against one process on the whole
+     batch (4 frames, small geometry, float32; SECOND on voxels, on
+     columns at 4, PV-RCNN two-stage; DDP_FORMS): losses, summed
+     gradients, running statistics and counters, parameters after the step
+     bit-equal across the ranks; then train_cli as rank 0 of a world of
+     one over NCCL through the coordinator variables, whose first-step
+     loss must equal a plain train_cli run's.
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -151,6 +173,7 @@ import gc
 import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -187,6 +210,7 @@ from vision3d_tpu_torch.ops import zwin_conv as zw
 from vision3d_tpu_torch.ops.column_conv import column_conv
 from vision3d_tpu_torch.ops.gather_gemm import gather_gemm, route_of
 from vision3d_tpu_torch.ops.gather_rows import gather_rows, gather_rows_plain
+from vision3d_tpu_torch.parallel import mesh
 from vision3d_tpu_torch.synthetic import kitti_like_batch, kitti_like_train_batch
 from vision3d_tpu_torch.training.train import (create_pvrcnn_train_state,
                                                create_train_state, make_lr_schedule,
@@ -260,6 +284,29 @@ TRAIN_FORMS = {
 # of TRAIN_FORMS' column_conv launches per step, those of the column convs'
 # dX (the first conv, C = 4, takes none), all on "mma" in bf16
 TRAIN_FORMS_DX = {"column_df4": 13, "column_df2": 5}
+# PV-RCNN training on columns (phase 11a), both modes at
+# train_dense_from_stage 4 and 2: the trunk's launches are SECOND's in the
+# same form (the scales' conversions are gathers of plain PyTorch), so
+# {name: (mode, config changes, launches of a step, column dX launches,
+# frames)}. The two-stage step at 2 takes 4 frames of phase 5's batch: at
+# 8 in bf16 it ran out of the card's 80 GB (76.0 GiB allocated when a
+# 2.36 GiB request failed, NVIDIA H100 80GB HBM3)
+PV_COLUMN_TRAIN = {f"{mode}_{form}": (mode, TRAIN_FORMS[form][0], TRAIN_FORMS[form][1],
+                                      TRAIN_FORMS_DX[form],
+                                      4 if (mode, form) == ("pvrcnn2", "column_df2") else BATCH)
+                   for mode in PV_MODES for form in ("column_df4", "column_df2")}
+PV_COLUMN_STEPS = (2, 4)      # warm-up and timed steps of each phase-11a run
+# Several ranks against one process on the whole batch (phase 11d and
+# tests/test_torch_ddp.py): {form: (model, config changes)}; float32, the
+# one process's ReLU gates and max-pool selections replayed in every rank
+# (a batch-norm statistic summed in another order moves a ReLU input by a
+# float32 hair, and a gate that flips moves earlier gradients by ~1e-3 of
+# their max; phase 6); losses to 1e-5 relative, gradients to 1e-4 of their
+# max, running statistics to 1e-5 of 1 + |value|
+DDP_FORMS = {"second_voxel": ("second", {}),
+             "second_column4": ("second", dict(sparse_backend="column")),
+             "pvrcnn2": ("pvrcnn2", {})}
+DDP_LOSS_TOL, DDP_GRAD_TOL, DDP_STAT_TOL = 1e-5, 1e-4, 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1126,6 +1173,33 @@ def max_gates(gates, replay):
         torch.Tensor.amax = orig
 
 
+@contextlib.contextmanager
+def ball_groups(groups, replay):
+    """Every ball query of the set abstraction (the sources' and the RoI
+    grid pool's) with its groups explicit, in call order: recorded into
+    ``groups`` as (indices, valid), or, with ``replay``, taken from
+    ``groups``. A grid point that moves by a float32 hair (its proposal's
+    deltas summed in another order) can take a keypoint at its radius in or
+    out of a group. Yields a list that collects, per query, how many group
+    entries differ from the replayed ones."""
+    orig, differ, calls = tpointnet.ball_query, [], iter(list(groups))
+
+    def query(*args, **kwargs):
+        idx, valid = orig(*args, **kwargs)
+        if replay:
+            ridx, rvalid = (t.to(idx.device) for t in next(calls))
+            differ.append(int(((idx != ridx) | (valid != rvalid)).sum()))
+            return ridx, rvalid
+        groups.append((idx.cpu(), valid.cpu()))
+        return idx, valid
+
+    tpointnet.ball_query = query
+    try:
+        yield differ
+    finally:
+        tpointnet.ball_query = orig
+
+
 def launches_at(name, rows, count, dtype, times):
     """The launches of kernel ``name`` that ``times`` runs of the ``rows``
     shapes give at ``dtype``, in all and per route (``route_of``'s rule)."""
@@ -1292,9 +1366,9 @@ def pvrcnn_stages(model, anchors, points, num, generator):
 
     def voxelize():
         vox = voxelize_batch(points, num, cfg)
-        return vox, build_middle_input(cfg, vox)[0]
+        return (vox, *build_middle_input(cfg, vox))
 
-    vox, st = stage("voxelize", voxelize)
+    vox, st, col_dropped = stage("voxelize", voxelize)
     bev, cnn_diag, scales = stage("cnn", lambda: model.cnn(st, need_scales=True))
 
     def rpn_head():
@@ -1337,6 +1411,8 @@ def pvrcnn_stages(model, anchors, points, num, generator):
     refined, conf, det = stage("nms", nms)
     diag = {k: int(v.sum()) for k, v in cnn_diag.items()}
     diag["voxelizer_dropped"] = int((vox["num_voxels_total"] - vox["num_voxels"]).sum())
+    if col_dropped is not None:
+        diag["stage0_columns_dropped"] = int(col_dropped.sum())
     return ms, dict(keypoint_idx=kp_idx, keypoints=kp, sources=sources,
                     point_features=pf, proposals=proposals, refined=refined,
                     conf=conf, det=det, diag=diag)
@@ -1348,21 +1424,25 @@ def check_counters(diag, where):
             check(int(v) == 0, f"{where}: capacity counter {k} = {int(v)}")
 
 
-def pvrcnn_phase(cfg, dev, want_zwin):
-    """Phase 8a: PV-RCNN at full width on the card."""
+def pvrcnn_phase(cfg, dev, want, state_dict=None, profile=True):
+    """Phases 8a and 11a: PV-RCNN at full width on the card, every forward
+    launching as ``want`` says. Without ``state_dict`` the weights are
+    ``init_pvrcnn`` seed 0 with one batch's BN statistics, and the result
+    carries them ("state_dict", on the CPU). ``profile`` adds the
+    synchronised stage split and the ball queries' times."""
     cfg = pvrcnn_cfg(cfg)
-    model, anchors = create_pvrcnn(cfg, device=dev)
+    model, anchors = create_pvrcnn(cfg, device=dev, state_dict=state_dict)
     pts, num = kitti_like_batch(0, BATCH, POINTS)
     points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
-    calibrate_bn(model, points, num_t, anchors)
+    if state_dict is None:
+        calibrate_bn(model, points, num_t, anchors)
     gen = lambda: torch.Generator().manual_seed(0)     # noqa: E731
     with torch.no_grad():
-        (det1, diag1), l1 = counted(lambda: model.inference(points, num_t, anchors),
-                                    want_zwin)
+        (det1, diag1), l1 = counted(lambda: model.inference(points, num_t, anchors), want)
         (det2, diag2), l2 = counted(lambda: model.inference_two_stage(
-            points, num_t, anchors, generator=gen()), want_zwin)
+            points, num_t, anchors, generator=gen()), want)
         (ms, inter), l3 = counted(lambda: pvrcnn_stages(model, anchors, points, num_t,
-                                                        gen()), want_zwin)
+                                                        gen()), want)
     check_counters(diag1, "pvrcnn inference")
     check_counters(diag2, "pvrcnn inference_two_stage")
     check_counters(inter["diag"], "pvrcnn stage split")
@@ -1399,6 +1479,16 @@ def pvrcnn_phase(cfg, dev, want_zwin):
     two_p50, two_times = p50(lambda: model.inference_two_stage(points, num_t, anchors,
                                                                generator=gen()))
     peak = int(torch.cuda.max_memory_allocated())
+    out = dict(launches=l2, launches_one_stage=l1,
+               valid_one_stage=det1.valid.sum(1).tolist(),
+               valid_two_stage=det2.valid.sum(1).tolist(),
+               counters={k_: int(v) for k_, v in diag2.items()},
+               p50_one_stage_ms=one_p50, p50_two_stage_ms=two_p50,
+               two_stage_ms=[float(t) for t in two_times], peak_mem_bytes=peak)
+    if state_dict is None:
+        out["state_dict"] = {k_: v.cpu() for k_, v in model.state_dict().items()}
+    if not profile:
+        return out
     with torch.no_grad():
         split = [pvrcnn_stages(model, anchors, points, num_t, gen()) for _ in range(4)]
     split_ms = {k_: float(np.median([s[0][k_] for s in split[1:]])) for k_ in split[0][0]}
@@ -1411,19 +1501,15 @@ def pvrcnn_phase(cfg, dev, want_zwin):
             ball_query(xyz, msk, inter["keypoints"], r, s_)
             for r, s_ in zip(pnet.radii, pnet.nsamples)], reps=5, warmup=1)
         bq_ms[f"source{i}_n"] = int(xyz.shape[1])
-    return dict(ball_query_ms=bq_ms, launches=l2, launches_one_stage=l1,
-                valid_one_stage=det1.valid.sum(1).tolist(),
-                valid_two_stage=det2.valid.sum(1).tolist(),
-                counters={k_: int(v) for k_, v in diag2.items()},
-                p50_one_stage_ms=one_p50, p50_two_stage_ms=two_p50,
-                two_stage_ms=[float(t) for t in two_times], peak_mem_bytes=peak,
-                stage_ms=split_ms, stage_sum_ms=float(sum(split_ms.values())))
+    return dict(out, ball_query_ms=bq_ms, stage_ms=split_ms,
+                stage_sum_ms=float(sum(split_ms.values())))
 
 
-def pvrcnn_reference_phase(dev):
-    """Phase 8b: small geometry, float32 (called under ``full_float32()``):
-    the card against the CPU on one set of weights and grid-point draws."""
-    cfg = pvrcnn_cfg(small_geometry_cfg())
+def pvrcnn_reference_phase(dev, backend="voxel"):
+    """Phases 8b and 11b: small geometry, float32 (called under
+    ``full_float32()``): the card against the CPU on one set of weights and
+    grid-point draws, on the ``backend`` representation."""
+    cfg = pvrcnn_cfg(small_geometry_cfg()).replace(sparse_backend=backend)
     pts, num = crop_to_grid(cfg, kitti_like_batch(1, 2, 60000)[0])
     pts, num = pts[:, :PV_REF_POINTS], np.minimum(num, PV_REF_POINTS)
     cpu = torch.device("cpu")
@@ -1443,7 +1529,8 @@ def pvrcnn_reference_phase(dev):
                 ball_query(xyz, msk, inter["keypoints"], r, s)
                 for (xyz, _, msk), pair in zip(inter["sources"], zip(radii[::2], radii[1::2]))
                 for r, s in pair]
-        want = {} if d.type == "cpu" else {"zwin_conv": 6, "zwin_conv.fma": 6}
+        kernel = "column_conv" if backend == "column" else "zwin_conv"
+        want = {} if d.type == "cpu" else {kernel: 6, f"{kernel}.fma": 6}
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"pvrcnn reference on {d.type}: launches {launched}")
         runs.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
@@ -1457,8 +1544,8 @@ def pvrcnn_reference_phase(dev):
         errs[key] = float((g[key] - ref).abs().max() / ref.abs().max())
     gdet = type(g["det"])(*[t.cpu() for t in g["det"]])
     cmp = compare_backends(gdet, c["det"])
-    out = dict(points=int(num[0]), keypoints_equal=torch.equal(g["keypoint_idx"],
-                                                               c["keypoint_idx"]),
+    out = dict(backend=backend, points=int(num[0]),
+               keypoints_equal=torch.equal(g["keypoint_idx"], c["keypoint_idx"]),
                ball_query_equal=bq_equal, ball_queries=len(c["ball_query"]),
                counters=c["diag"], rel_err=errs, detections=cmp)
     print(f"pvrcnn reference (card vs CPU, f32, small geometry): {out}", flush=True)
@@ -1533,36 +1620,49 @@ def step_marks(tx, marks):
         del tx.step
 
 
-def pvrcnn_training_phase(cfg, dev, expected):
-    """Phase 9a: PV-RCNN training at full width, bf16, from a fresh seeded
-    init, both modes: launches of a step, capacity counters, losses, the
-    p50 of the timed steps, peak memory; for the two-stage step a
+def pvrcnn_training_phase(cfg, dev, runs, warmup=PV_TRAIN_WARMUP, timed=PV_TRAIN_TIMED):
+    """Phases 9a and 11a: PV-RCNN training at full width, bf16, from a
+    fresh seeded init; ``runs`` is {name: (mode, config changes, launches
+    of a step, of which column dX launches, frames of phase 5's batch)}:
+    launches of the first step
+    by kernel and route, its column dX launches apart, every gather_rows
+    launch of it against its plain version, capacity counters, losses, the
+    p50 of the timed steps, peak memory; for a two-stage step a
     synchronised split into forward (targets, forward, losses), backward
     and optimizer; the point branch's running statistics moved, and the
     stage-2 parameters moved (two stages) or do not exist (one)."""
     cfg = pvrcnn_cfg(cfg)
-    batch = _to_device(kitti_like_train_batch(0, BATCH, POINTS, cfg=cfg), dev)
+    full = kitti_like_train_batch(0, BATCH, POINTS, cfg=cfg)
     out = {}
-    for mode in PV_MODES:
+    for name, (mode, kw, expected, n_dx, frames) in runs.items():
+        batch = _to_device({k: v[:frames] for k, v in full.items()}, dev)
         two = mode == "pvrcnn2"
+        cfg_r = cfg.replace(**kw)
         model, tx, state = create_pvrcnn_train_state(
-            cfg, torch.Generator().manual_seed(0), STEPS_PER_EPOCH, dev, two_stage=two)
-        step = make_pvrcnn_train_step(model, tx, cfg, train_stage2=two, seed=0)
+            cfg_r, torch.Generator().manual_seed(0), STEPS_PER_EPOCH, dev, two_stage=two)
+        step = make_pvrcnn_train_step(model, tx, cfg_r, train_stage2=two, seed=0)
         stats0 = pnets_statistics(model)
         stage2_0 = {n: p.detach().clone() for n, p in stage2_parameters(model).items()}
-        check(bool(stage2_0) == two, f"{mode}: stage-2 parameters {sorted(stage2_0)[:3]}")
-        (state, first), launches = counted(lambda: step(state, batch), expected)
+        check(bool(stage2_0) == two, f"{name}: stage-2 parameters {sorted(stage2_0)[:3]}")
+        gathers, dx = [], {}
+        with checked_gathers(gathers), counted_dx(dx):
+            (state, first), launches = counted(lambda: step(state, batch), expected)
+        check(len(gathers) == expected["gather_rows"],
+              f"{name}: {len(gathers)} gathers checked")
+        check(dx["launches"] == {"column_conv": n_dx, "column_conv.mma": n_dx,
+                                 "column_conv.fma": 0},
+              f"{name}: column dX launches {dx['launches']}, not {n_dx} on mma")
         losses = [{k: float(v) for k, v in first.items()}]
         counters = {k: int(v) for k, v in state.diagnostics.items()}
         times = []
-        for i in range(1, PV_TRAIN_WARMUP + PV_TRAIN_TIMED):
-            if i == PV_TRAIN_WARMUP:
+        for i in range(1, warmup + timed):
+            if i == warmup:
                 torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, o = step(state, batch)
             torch.cuda.synchronize()
-            if i >= PV_TRAIN_WARMUP:
+            if i >= warmup:
                 times.append(1e3 * (time.perf_counter() - t0))
             losses.append({k: float(v) for k, v in o.items()})
             for k, v in state.diagnostics.items():
@@ -1579,26 +1679,27 @@ def pvrcnn_training_phase(cfg, dev, expected):
             split = {"forward_ms": 1e3 * (marks["backward"] - t0),
                      "backward_ms": 1e3 * (marks["optimizer"] - marks["backward"]),
                      "optimizer_ms": 1e3 * (marks["end"] - marks["optimizer"])}
-        check_counters(counters, f"{mode} training")
+        check_counters(counters, f"{name} training")
         check(all(np.isfinite(list(d.values())).all() for d in losses),
-              f"{mode}: non-finite loss {losses}")
+              f"{name}: non-finite loss {losses}")
         keys = {"loss", "cls_loss", "reg_loss"} | ({"refine_cls_loss", "refine_reg_loss",
                                                     "refine_loss", "seg_loss"} if two else set())
-        check(set(losses[0]) == keys, f"{mode}: losses {sorted(losses[0])}")
-        for name, p in model.named_parameters():
-            check(bool(torch.isfinite(p).all()), f"{mode}: non-finite parameter {name}")
+        check(set(losses[0]) == keys, f"{name}: losses {sorted(losses[0])}")
+        for pname, p in model.named_parameters():
+            check(bool(torch.isfinite(p).all()), f"{name}: non-finite parameter {pname}")
         moved = {k: float((model.state_dict()[k] - v).abs().max()) for k, v in stats0.items()}
         check(len(moved) == 40 and min(moved.values()) > 0,
-              f"{mode}: the point branch's running statistics did not all move: {moved}")
+              f"{name}: the point branch's running statistics did not all move: {moved}")
         s2 = stage2_parameters(model)
         still = [n for n, p in s2.items() if torch.equal(p.detach(), stage2_0[n])]
-        check(not still, f"{mode}: stage-2 parameters that did not move: {still}")
-        check(state.step == PV_TRAIN_WARMUP + PV_TRAIN_TIMED + two, f"{mode}: step counter")
-        out[mode] = dict(launches=launches, counters=counters, losses=losses,
+        check(not still, f"{name}: stage-2 parameters that did not move: {still}")
+        check(state.step == warmup + timed + two, f"{name}: step counter")
+        out[name] = dict(frames=frames, launches=launches, dx=dx, counters=counters,
+                         losses=losses,
                          step_ms_p50=float(np.median(times)), step_ms=times,
                          peak_mem_bytes=peak, split=split,
                          pnets_stat_moved_min=min(moved.values()),
-                         stage2_parameters=len(s2))
+                         stage2_parameters=len(s2), gathers_checked=len(gathers))
         del model, tx, state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -1637,11 +1738,11 @@ def unit_gain_stage2(model, generator):
             lin.weight.normal_(0.0, (2.0 / lin.weight.shape[1]) ** 0.5, generator=generator)
 
 
-def pvrcnn_training_reference_phase(dev):
-    """Phase 9b: small geometry, float32 (called under ``full_float32()``):
-    one step of each mode on the card (kernels) and on the CPU (plain
-    versions) from one set of weights, one batch and the step's own CPU
-    draws. The keypoint and ball-query indices must be equal; then the
+def pvrcnn_training_reference_phase(dev, backend="voxel", modes=PV_MODES):
+    """Phases 9b and 11b: small geometry, float32 (called under
+    ``full_float32()``): one step of each of ``modes`` on the ``backend``
+    representation on the card (kernels) and on the CPU (plain versions)
+    from one set of weights, one batch and the step's own CPU draws. The keypoint and ball-query indices must be equal; then the
     losses, gradients, parameters and running statistics after the step
     must agree: losses to 1e-5 relative, every gradient to 1e-4 of its
     max (phase 6's gates), running statistics as PV_STAT_TOL, and a
@@ -1652,7 +1753,7 @@ def pvrcnn_training_reference_phase(dev):
     max-pool selections: without the latter, 8 selections that differed
     moved the grid pool's and a source's set-abstraction gradients by up
     to 2.6e-4 of their max on an NVIDIA H100 80GB HBM3 (700.00 W)."""
-    cfg = pvrcnn_cfg(small_geometry_cfg())
+    cfg = pvrcnn_cfg(small_geometry_cfg()).replace(sparse_backend=backend)
     b = kitti_like_train_batch(1, 2, 60000, max_gt=8, cfg=cfg)
     pts, num = crop_to_grid(cfg, b["points"])
     b["points"], b["num_points"] = pts[:, :PV_REF_POINTS], np.minimum(num, PV_REF_POINTS)
@@ -1681,8 +1782,9 @@ def pvrcnn_training_reference_phase(dev):
     spe = 10
     lr = make_lr_schedule(cfg, spe)(0)
     out = {}
+    step_launches = TRAIN_FORMS["column_df4"][1] if backend == "column" else ALL_SPARSE[1]
     with torch.backends.mkldnn.flags(enabled=False):
-        for mode in PV_MODES:
+        for mode in modes:
             two = mode == "pvrcnn2"
             runs, relus, maxes = [], [], []
             sd_mode = {k: v for k, v in sd.items()
@@ -1704,8 +1806,7 @@ def pvrcnn_training_reference_phase(dev):
                         max_gates(maxes, replay=bool(runs)) as max_differ, \
                         point_indices([]) as indices:
                     state, losses = step(state, _to_device(b, d))
-                want = ({} if d.type == "cpu" else
-                        {"gather_gemm": 27, "gather_gemm.fma": 27, "gather_rows": 14})
+                want = {} if d.type == "cpu" else float32_launches(step_launches)
                 launched = {k: n for k, n in zw.LAUNCHES.items() if n}
                 check(launched == want, f"{mode} reference on {d.type}: launches {launched}")
                 runs.append(dict(
@@ -2049,15 +2150,18 @@ def training_reference_phase(dev, forms):
     return out
 
 
-def train_forms_cli_phase(shapes, col_rows):
-    """Phase 10d: train_cli for one epoch of phase 7's 16 synthetic train
-    frames with ``--dense-from 2``, on a yaml that sets ``SPARSE_BACKEND:
-    column``, and with ``--model pvrcnn2 --dense-from 2``, in the yaml's
-    float32; then eval_cli --ckpt of each checkpoint (the column one on
-    its yaml) on the 48 val frames: launches per step and per batch,
-    finite losses, frames/s, peak memory, finite AP tables (no gate). The
-    PV-RCNN run takes batches of PV_DENSE_CLI_BATCH frames: at 8 in
-    float32 it needs more than the card's 80 GB."""
+def train_forms_cli_phase(shapes, col_rows, names):
+    """Phases 10d and 11c: train_cli for one epoch of phase 7's 16
+    synthetic train frames, in the yaml's float32, in the runs ``names``
+    of: ``--dense-from 2`` ("second_df2"), on a yaml that sets
+    ``SPARSE_BACKEND: column`` ("second_column"), ``--model pvrcnn2
+    --dense-from 2`` ("pvrcnn2_df2") and ``--model pvrcnn2`` on the column
+    yaml ("pvrcnn2_column"); then eval_cli --ckpt of each checkpoint (the
+    column ones on their yaml) on the 48 val frames: launches per step and
+    per batch, finite losses, frames/s, peak memory, finite AP tables (no
+    gate). The PV-RCNN run at dense from 2 takes batches of
+    PV_DENSE_CLI_BATCH frames: at 8 in float32 it needs more than the
+    card's 80 GB."""
     from vision3d_tpu_torch import eval_cli, train_cli
 
     golden = json.loads(GOLDEN.read_text())
@@ -2076,8 +2180,12 @@ def train_forms_cli_phase(shapes, col_rows):
                 "second_column": ([], ["--config", str(column_yaml)] + data[2:],
                                   "column_df4", col_eval, BATCH),
                 "pvrcnn2_df2": (["--model", "pvrcnn2", "--dense-from", "2"], data,
-                                "voxel_df2", zwin_eval, PV_DENSE_CLI_BATCH)}
-        for name, (extra, args, form, want_eval, batch) in runs.items():
+                                "voxel_df2", zwin_eval, PV_DENSE_CLI_BATCH),
+                "pvrcnn2_column": (["--model", "pvrcnn2"],
+                                   ["--config", str(column_yaml)] + data[2:],
+                                   "column_df4", col_eval, BATCH)}
+        for name in names:
+            extra, args, form, want_eval, batch = runs[name]
             steps = 16 // batch
             want = {k: v * steps for k, v in float32_launches(TRAIN_FORMS[form][1]).items()}
             recs, launches = counted(lambda: train_cli.main(
@@ -2102,6 +2210,205 @@ def train_forms_cli_phase(shapes, col_rows):
                              eval=timing,
                              eval_per_batch={k: v // batches for k, v in elaunch.items() if v},
                              table=table)
+    return out
+
+
+def ddp_step(cfg, mode, sd, batch, device, relus, maxes, groups, replay):
+    """One training step of ``mode`` ("second" or "pvrcnn2", the draws of
+    ``pvrcnn_draws`` seed 0) from ``sd`` on ``batch`` (numpy), with every
+    ReLU gate, max-pool selection and ball-query group recorded into, or
+    with ``replay`` taken from, ``relus`` / ``maxes`` / ``groups``: the
+    losses and counters it returns, the gradients the optimizer takes
+    (summed over the ranks in a group), the state dict after the update,
+    and how many gates, selections and group entries differed from the
+    replayed ones."""
+    if mode == "second":
+        model, tx, state = create_train_state(cfg, device=device, state_dict=sd)
+        step = make_train_step(model, tx, cfg)
+    else:
+        model, tx, state = create_pvrcnn_train_state(cfg, device=device, state_dict=sd)
+        step = make_pvrcnn_train_step(model, tx, cfg, train_stage2=True, seed=0)
+    grads, update = {}, tx.step
+
+    def grab_then_update(count):
+        grads.update({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        update(count)
+
+    tx.step = grab_then_update
+    with torch.backends.mkldnn.flags(enabled=False), \
+            relu_gates(relus, replay) as differ, max_gates(maxes, replay) as mdiffer, \
+            ball_groups(groups, replay) as gdiffer:
+        state, losses = step(state, _to_device(batch, device))
+    return dict(losses={k: float(v) for k, v in losses.items()}, grads=grads,
+                sd={k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                counters={k: int(v) for k, v in state.diagnostics.items()},
+                relu_differ=sum(differ), max_differ=sum(mdiffer), group_differ=sum(gdiffer))
+
+
+def ddp_rank(rank, world, port, device, backend, payload, out_dir):
+    """One rank of ``ddp_check``: joins the group through the coordinator
+    variables, runs every form of the payload on its slice of the batch on
+    the replayed slices of the gates (float32, TF32 off), and saves what
+    ``ddp_step`` returns."""
+    torch.set_num_threads(1)
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES=str(world),
+                      PROCESS_ID=str(rank))
+    mesh.initialize_distributed(device, backend)
+    try:
+        p = torch.load(payload, weights_only=False)
+        dev = mesh.local_device(device)
+        out = {}
+        with full_float32():
+            for form, ref in p["forms"].items():
+                b = len(ref["batch"]["points"]) // world
+                part = slice(rank * b, (rank + 1) * b)
+                out[form] = ddp_step(ref["cfg"], ref["mode"], ref["sd"],
+                                     {k: v[part] for k, v in ref["batch"].items()}, dev,
+                                     [g[part] for g in ref["relus"]],
+                                     [g[part] for g in ref["maxes"]],
+                                     [(i[part], v[part]) for i, v in ref["groups"]],
+                                     replay=True)
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ddp_check(cfg, device, world, backend, batch_size=4, points=None):
+    """Phase 11d and tests/test_torch_ddp.py: every form of DDP_FORMS at
+    ``cfg`` (float32), one training step of ``world`` ranks (processes
+    spawned here, ``backend`` on ``device``) each on its slice of a batch of
+    ``batch_size`` frames, against one process (this one) on the whole
+    batch: losses, summed gradients, counters and running statistics
+    against the one process's, parameters after the step bit-equal across
+    the ranks. Called under ``full_float32()``, which each rank also
+    takes. Returns each form's worst errors."""
+    import torch.multiprocessing as mp
+
+    cfg = cfg.replace(compute_dtype="float32")
+    b = kitti_like_train_batch(3, batch_size, 60000, max_gt=8, cfg=cfg)
+    pts, num = crop_to_grid(cfg, b["points"])
+    n = min(points or pts.shape[1], pts.shape[1])
+    b["points"], b["num_points"] = pts[:, :n], np.minimum(num, n)
+    # every box 5 cm off an anchor of its class at yaw 0: each valid box has
+    # positives, so the regression loss and its gradients take part
+    anchors = make_anchors(cfg)                      # (n_cls, n_yaw, ny, nx, 7)
+    rng = np.random.default_rng(4)
+    iy = rng.integers(1, anchors.shape[2] - 1, b["boxes"].shape[:2])
+    ix = rng.integers(1, anchors.shape[3] - 1, b["boxes"].shape[:2])
+    b["boxes"][..., :3] = anchors[b["class_idx"], 0, iy, ix, :3] + 0.05
+    b["boxes"][..., 6] = 0.05
+    forms, refs = {}, {}
+    for form, (mode, kw) in DDP_FORMS.items():
+        cfg_f = cfg.replace(**kw)
+        if mode == "second":
+            model, _, _ = create_train_state(cfg_f, torch.Generator().manual_seed(2),
+                                             device="cpu")
+        else:
+            model, _, _ = create_pvrcnn_train_state(cfg_f, torch.Generator().manual_seed(2),
+                                                    device="cpu")
+            unit_gain_stage2(model, torch.Generator().manual_seed(3))
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        relus, maxes, groups = [], [], []
+        refs[form] = ddp_step(cfg_f, mode, sd, b, torch.device(device), relus, maxes,
+                              groups, False)
+        check(all(g.shape[0] == batch_size for g in relus + maxes + [i for i, _ in groups]),
+              f"{form}: a ReLU gate, max-pool selection or ball group is not batch-first")
+        check(refs[form]["losses"]["reg_loss"] > 0, f"{form}: no positive anchor")
+        forms[form] = dict(cfg=cfg_f, mode=mode, sd=sd, batch=b, relus=relus, maxes=maxes,
+                           groups=groups)
+    with tempfile.TemporaryDirectory() as tmp:
+        payload = Path(tmp) / "payload.pt"
+        torch.save({"forms": forms}, payload)
+        mp.start_processes(ddp_rank, args=(world, mesh.free_port(), device, backend,
+                                           str(payload), tmp),
+                           nprocs=world, join=True, start_method="spawn")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+    out = {}
+    for form, ref in refs.items():
+        runs = [r[form] for r in ranks]
+        n_gates = sum(g.numel() for g in forms[form]["relus"])
+        n_sel = sum(g.numel() for g in forms[form]["maxes"])
+        n_grp = sum(i.numel() for i, _ in forms[form]["groups"])
+        differ = sum(r["relu_differ"] for r in runs)
+        mdiffer = sum(r["max_differ"] for r in runs)
+        gdiffer = sum(r["group_differ"] for r in runs)
+        check(differ <= 1e-5 * n_gates and mdiffer <= 1e-5 * max(n_sel, 1)
+              and gdiffer <= 1e-5 * max(n_grp, 1),
+              f"{form}: {differ} of {n_gates} ReLU gates, {mdiffer} of {n_sel} max-pool "
+              f"selections, {gdiffer} of {n_grp} ball-group entries differ from the one "
+              f"process's")
+        for r in runs[1:]:
+            check(r["losses"] == runs[0]["losses"] and r["counters"] == runs[0]["counters"],
+                  f"{form}: the ranks report other losses or counters")
+            same = [k for k, v in r["sd"].items() if not torch.equal(v, runs[0]["sd"][k])]
+            check(not same, f"{form}: parameters or statistics differ across ranks: "
+                            f"{same[:4]}")
+        got = runs[0]
+        check(got["counters"] == ref["counters"],
+              f"{form}: counters {got['counters']} vs one process {ref['counters']}")
+        loss_rel = {k: abs(got["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in ref["losses"].items()}
+        check(set(got["losses"]) == set(ref["losses"])
+              and max(loss_rel.values()) <= DDP_LOSS_TOL,
+              f"{form}: losses {got['losses']} vs one process {ref['losses']}")
+        check(set(got["grads"]) == set(ref["grads"]), f"{form}: gradients of other parameters")
+        rels = {k: float((got["grads"][k] - x).abs().max()) / max(float(x.abs().max()), 1e-30)
+                for k, x in ref["grads"].items()}
+        worst = max(rels, key=rels.get)
+        check(rels[worst] <= DDP_GRAD_TOL, f"{form}: gradient of {worst} differs by "
+                                           f"{rels[worst]:.3g} of its max; the largest: "
+                                           f"{sorted(rels.items(), key=lambda kv: -kv[1])[:12]}; "
+                                           f"gates {differ}, selections {mdiffer}, groups "
+                                           f"{gdiffer}, losses {loss_rel}")
+        stat_err = max(float(((got["sd"][k] - x).abs() / (1 + x.abs())).max())
+                       for k, x in ref["sd"].items() if "running_" in k)
+        check(stat_err <= DDP_STAT_TOL, f"{form}: running statistics differ by {stat_err}")
+        out[form] = dict(world=world, frames=batch_size, loss_rel_max=max(loss_rel.values()),
+                         worst_grad=worst, worst_grad_rel=rels[worst], stat_err=stat_err,
+                         relu_gates=n_gates, gates_that_differed=differ,
+                         max_selections_that_differed=mdiffer,
+                         group_entries_that_differed=gdiffer, counters=ref["counters"],
+                         losses=ref["losses"])
+    return out
+
+
+def ddp_cli_phase():
+    """Phase 11d: train_cli for one epoch of phase 7's 16 synthetic train
+    frames in the yaml's float32, once plain and once as rank 0 of a
+    world of one over NCCL through the coordinator variables: launches per
+    step, the group left behind by neither, and the first step's loss
+    equal."""
+    from vision3d_tpu_torch import train_cli
+
+    golden = json.loads(GOLDEN.read_text())
+    steps = 16 // BATCH
+    want = {k: v * steps for k, v in float32_launches(ALL_SPARSE[1]).items()}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, data = synthetic_set(tmp, golden)
+        group = {"COORDINATOR_ADDRESS": f"localhost:{mesh.free_port()}",
+                 "NUM_PROCESSES": "1", "PROCESS_ID": "0"}
+        for name, env in (("plain", {}), ("nccl_world1", group)):
+            os.environ.update(env)
+            try:
+                recs, launches = counted(lambda: train_cli.main(
+                    data + ["--batch-size", str(BATCH), "--workers", "2", "--epochs", "1",
+                            "--ckpt-dir", str(tmp / f"ck_{name}"),
+                            "--metrics-jsonl", str(tmp / f"{name}.jsonl")]), want)
+            finally:
+                for k in env:
+                    del os.environ[k]
+            check(not torch.distributed.is_initialized(), f"train_cli {name} left its group")
+            check(len(recs) == 1 and recs[0]["steps"] == steps
+                  and Path(recs[0]["checkpoint"]).is_file()
+                  and all(np.isfinite(recs[0]["losses"])), f"train_cli {name}: {recs}")
+            out[name] = {k: recs[0][k] for k in ("seconds", "frames_per_s", "losses")}
+    check(out["nccl_world1"]["losses"][0] == out["plain"]["losses"][0],
+          f"first-step loss over NCCL {out['nccl_world1']['losses'][0]} differs from the "
+          f"plain run's {out['plain']['losses'][0]}")
     return out
 
 
@@ -2245,7 +2552,7 @@ def main():
 
     gc.collect()
     torch.cuda.empty_cache()
-    pvt = pvrcnn_training_phase(cfg, dev, expected)
+    pvt = pvrcnn_training_phase(cfg, dev, {m: (m, {}, expected, 0, BATCH) for m in PV_MODES})
     for mode, r in pvt.items():
         print(f"{mode} training (batch {BATCH} x {POINTS} points, bf16, seeded init): "
               f"{PV_TRAIN_TIMED} timed steps, p50 {r['step_ms_p50']:.2f} ms "
@@ -2320,7 +2627,8 @@ def main():
         print(f"train {form} reference (card vs CPU, f32, small geometry): {r}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    fcli = train_forms_cli_phase(shapes, col_rows)
+    fcli = train_forms_cli_phase(shapes, col_rows, ("second_df2", "second_column",
+                                                     "pvrcnn2_df2"))
     for name, r in fcli.items():
         t = r["train"]
         print(f"train_cli {name} (float32, 16 frames, batch {r['batch']}, 2 loader processes): "
@@ -2332,6 +2640,63 @@ def main():
               f"{r['eval']['seconds']:.2f} s ({r['eval']['frames'] / r['eval']['seconds']:.2f} "
               f"frames/s), launches per batch {r['eval_per_batch']}, AP (no gate) "
               f"{r['table']}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvc = pvrcnn_phase(cfg.replace(sparse_backend="column"), dev, want_col,
+                       state_dict=pv.pop("state_dict"), profile=False)
+    print(f"pvrcnn on columns (phase 8's weights, dense_from_stage 2): one stage p50 "
+          f"{pvc['p50_one_stage_ms']:.2f} ms, two stages p50 "
+          f"{pvc['p50_two_stage_ms']:.2f} ms ({[round(t, 2) for t in pvc['two_stage_ms']]}), "
+          f"peak mem {pvc['peak_mem_bytes'] / 2**30:.2f} GiB, valid detections per frame "
+          f"{pvc['valid_two_stage']}, counters {pvc['counters']}, launches per forward "
+          f"{pvc['launches']} (one stage {pvc['launches_one_stage']})", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvct = pvrcnn_training_phase(cfg, dev, PV_COLUMN_TRAIN, *PV_COLUMN_STEPS)
+    for name, r in pvct.items():
+        print(f"{name} training (batch {r['frames']} x {POINTS} points, bf16, seeded init): "
+              f"{PV_COLUMN_STEPS[1]} timed steps, p50 {r['step_ms_p50']:.2f} ms "
+              f"({[round(t, 2) for t in r['step_ms']]}), peak mem "
+              f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, launches per step {r['launches']}, "
+              f"column dX launches {r['dx']['launches']}, {r['gathers_checked']} gather_rows "
+              f"launches equal to the plain version, counters {r['counters']}, split "
+              f"{r['split']}, losses " + "; ".join(
+                  ", ".join(f"{k} {v:.4f}" for k, v in d.items()) for d in r["losses"][:2]),
+              flush=True)
+    with full_float32():
+        pvcref = pvrcnn_reference_phase(dev, "column")
+        pvctref = pvrcnn_training_reference_phase(dev, "column", ("pvrcnn2",))
+    print(f"pvrcnn column inference reference (card vs CPU, f32, small geometry): "
+          f"{pvcref}", flush=True)
+    print(f"pvrcnn2 column training reference (card vs CPU, f32, small geometry): "
+          f"{pvctref['pvrcnn2']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pvccli = train_forms_cli_phase(shapes, col_rows, ("pvrcnn2_column",))
+    r = pvccli["pvrcnn2_column"]
+    t = r["train"]
+    print(f"train_cli --model pvrcnn2 on columns (float32, 16 frames, batch {r['batch']}, 2 "
+          f"loader processes): {t['seconds']:.2f} s, {t['frames_per_s']:.2f} frames/s, host "
+          f"wait {t['host_wait_s']:.2f} s ({t['host_wait_s'] / t['seconds']:.1%}), peak mem "
+          f"{t['peak_mem_bytes'] / 2**30:.2f} GiB, losses {[round(x, 4) for x in t['losses']]}, "
+          f"launches per step {r['train_per_step']}; eval_cli --model pvrcnn2 --ckpt: "
+          f"{r['eval']['frames']} frames in {r['eval']['seconds']:.2f} s "
+          f"({r['eval']['frames'] / r['eval']['seconds']:.2f} frames/s), launches per batch "
+          f"{r['eval_per_batch']}, AP (untrained, no gate) {r['table']}", flush=True)
+    del pvcref
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with full_float32():
+        ddp = ddp_check(small_geometry_cfg(), "cuda", 2, "gloo", batch_size=4,
+                        points=PV_REF_POINTS)
+    for form, r in ddp.items():
+        print(f"2 gloo ranks on one card vs one process, {form} (f32, small geometry, "
+              f"4 frames): {r}", flush=True)
+    ddpcli = ddp_cli_phase()
+    print(f"train_cli as rank 0 of a world of one over NCCL vs plain (float32, 16 frames): "
+          f"{ddpcli}", flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2418,6 +2783,12 @@ def main():
                                            for f, r in forms.items()},
          "launches_train_cli_forms_per_step": {n: r["train_per_step"]["gather_rows"]
                                                for n, r in fcli.items()},
+         # PV-RCNN on columns (phase 11a, 11c), each launch of 11a's first
+         # step equal to the plain version
+         "launches_pvrcnn_column_train_per_step": {n: r["launches"]["gather_rows"]
+                                                   for n, r in pvct.items()},
+         "launches_train_cli_pvrcnn_column_per_step":
+             pvccli["pvrcnn2_column"]["train_per_step"]["gather_rows"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gr_rows),
          "ms": per(gr_rows, "bf16_ms"), "plain_ms": per(gr_rows, "bf16_plain_ms"),
          "bound_ms": per(gr_rows, "bf16_bound_ms"), "bound_by": bound_by(gr_rows),
@@ -2456,6 +2827,18 @@ def main():
              for f, r in forms.items() if f.startswith("column")},
          "launches_train_cli_column_per_step": {
              k: v for k, v in fcli["second_column"]["train_per_step"].items()
+             if k.startswith("column_conv")},
+         # PV-RCNN on columns (phase 11): per two-stage forward at
+         # dense_from_stage 2, per training step of each mode at 4 and 2
+         # (bf16), per train_cli --model pvrcnn2 step (float32)
+         "launches_pvrcnn_column_per_forward": pvc["launches"],
+         "launches_pvrcnn_column_train_per_step": {
+             n: {k: v for k, v in r["launches"].items() if k.startswith("column_conv")}
+             for n, r in pvct.items()},
+         "launches_dx_pvrcnn_column_train_per_step": {
+             n: r["dx"]["launches"]["column_conv"] for n, r in pvct.items()},
+         "launches_train_cli_pvrcnn_column_per_step": {
+             k: v for k, v in pvccli["pvrcnn2_column"]["train_per_step"].items()
              if k.startswith("column_conv")},
          # the dX launches of phase 10a's step at train_dense_from_stage 4
          # (and 2), counted apart from the forward's; times per launch from

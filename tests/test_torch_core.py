@@ -68,7 +68,7 @@ def test_port_imports_nothing_of_jax():
                 "core.preprocess", "data.kitti", "data.augment", "data.loader",
                 "eval.kitti_eval", "eval_cli", "train_cli", "inference_cli",
                 "utils.bev_drawer", "ops.fps", "ops.ball_query", "models.pointnet",
-                "models.refinement", "models.pvrcnn"):
+                "models.refinement", "models.pvrcnn", "parallel.mesh"):
         assert "vision3d_tpu_torch." + new in mods
 
 

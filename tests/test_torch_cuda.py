@@ -1,8 +1,10 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
 column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
 versions, on the card, also inside the training autograd functions
-(SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), and PV-RCNN's inference and training on the card
-against the CPU. Every test here needs a CUDA device and skips without one. This
+(SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), the column scales'
+conversions' backward, PV-RCNN's inference and training on both backends
+on the card against the CPU, and two ranks on one card against one
+process. Every test here needs a CUDA device and skips without one. This
 file imports nothing of JAX, so it also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -841,3 +843,86 @@ def test_pvrcnn_training_card_matches_cpu(cuda_device):
         out = chip_smoke.pvrcnn_training_reference_phase(cuda_device)
     assert out["pvrcnn"]["index_sets"] == 11 and out["pvrcnn2"]["index_sets"] == 13
     assert out["pvrcnn2"]["losses_cpu"]["refine_reg_loss"] > 0
+
+
+def _column_tensor(dev, seed, b=2, n=300, grid=(11, 40, 36), c=16):
+    """A random ColumnTensor on ``dev``, about half of each column's z
+    active, and its flat rows taking gradient."""
+    from vision3d_tpu_torch.models.sparse_cnn import ColumnTensor
+
+    rng = np.random.default_rng(seed)
+    d, h, w = grid
+    keys = np.full((b, n), h * w, np.int32)
+    mask = np.zeros((b, n), bool)
+    for i, k in enumerate((n - 20, n - 60)):
+        keys[i, :k] = np.sort(rng.choice(h * w, k, replace=False))
+        mask[i, :k] = True
+    zmask = (rng.uniform(size=(b, n, d)) < 0.5) & mask[..., None]
+    feats = (rng.normal(size=(b, n, d, c)) * zmask[..., None]).astype(np.float32)
+    feats = torch.from_numpy(feats.reshape(b, n, d * c)).to(dev).requires_grad_()
+    t = [torch.from_numpy(a).to(dev) for a in (zmask, keys, mask)]
+    return ColumnTensor(feats=feats, zmask=t[0], keys=t[1], mask=t[2], grid=grid, c=c)
+
+
+@pytest.mark.parametrize("how", ["to_voxel_sparse", "dense_from_columns"])
+@pytest.mark.parametrize("cap", [0, 2000])
+def test_column_conversions_backward_card_matches_cpu(how, cap, cuda_device):
+    """PV-RCNN's column scales read as voxels, ``ColumnTensor.to_voxel_sparse``
+    and ``dense_from_columns(keep_keys=True)`` read back at its keys (the
+    latter's rows through ``DensifyFn`` on the gather_rows kernel on the
+    card), at a capacity that holds every site (0: N * D) and at one that
+    truncates: keys, masks and features equal, and the gradient of the
+    column rows equal to the CPU's (each site is read once: no sum)."""
+    from vision3d_tpu_torch.models import sparse_cnn as tscnn
+
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ct = _column_tensor(dev, 7)
+        if how == "to_voxel_sparse":
+            vs = ct.to_voxel_sparse(cap or ct.feats.shape[1] * ct.grid[0])
+        else:
+            vs = tscnn.dense_from_columns(ct, keep_keys=True, voxel_cap=cap).to_voxel_sparse()
+        g = torch.from_numpy(np.random.default_rng(8).normal(
+            size=tuple(vs.feats.shape)).astype(np.float32)).to(dev)
+        vs.feats.backward(g)
+        runs.append([t.detach().cpu() for t in (vs.keys, vs.mask, vs.feats, ct.feats.grad)])
+    (gk, gm, gf, gg), (ck, cm, cf, cg) = runs
+    assert torch.equal(gk, ck) and torch.equal(gm, cm)
+    assert (int(cm.sum()) < int(ct.zmask.sum())) == (cap > 0)
+    assert torch.equal(gf, cf) and torch.equal(gg, cg)
+    assert float(cg.abs().max()) > 0
+
+
+def test_pvrcnn_columns_card_matches_cpu(cuda_device):
+    """PV-RCNN on the column backend at small geometry, float32 with TF32
+    off, card against CPU (``chip_smoke.py`` phase 11b, which raises on any
+    difference): two-stage inference (6 column_conv launches, all on the FMA
+    route) and one two-stage training step (27 column_conv, 14
+    gather_rows), indices equal, floats and gradients within its bounds."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    with chip_smoke.full_float32():
+        inf = chip_smoke.pvrcnn_reference_phase(cuda_device, "column")
+        out = chip_smoke.pvrcnn_training_reference_phase(cuda_device, "column", ("pvrcnn2",))
+    assert inf["keypoints_equal"] and inf["ball_query_equal"]
+    assert out["pvrcnn2"]["index_sets"] == 13
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device):
+    """Two ranks on the card over gloo against one process on the whole
+    batch (``chip_smoke.py`` phase 11d, which raises on any difference):
+    SECOND on voxels and on columns, PV-RCNN two-stage."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    with chip_smoke.full_float32():
+        out = chip_smoke.ddp_check(chip_smoke.small_geometry_cfg(), "cuda", 2, "gloo",
+                                   batch_size=4, points=chip_smoke.PV_REF_POINTS)
+    assert set(out) == set(chip_smoke.DDP_FORMS)

@@ -287,10 +287,15 @@ def test_fresh_init_statistics():
                                rtol=0.05)
 
 
-def test_column_backend_scales_are_not_ported():
+def test_column_backend_scales_are_not_ported(port_run):
+    """The refusal this test once held is gone: the port's PV_RCNN builds
+    on a column config and loads the voxel backend's state dict strictly
+    (tests/test_torch_pvrcnn_column.py holds its outputs against JAX)."""
     cfg = port_cfg(pv_cfg().replace(sparse_backend="column"))
-    with pytest.raises(NotImplementedError, match="A16"):
-        tpv.PV_RCNN(cfg)
+    model = tpv.PV_RCNN(cfg)
+    model.load_state_dict(port_run["sd"], strict=True)
+    assert model.cfg.sparse_backend == "column"
+    assert set(model.state_dict()) == set(port_run["model"].state_dict())
 
 
 # --- eval_cli --model pvrcnn|pvrcnn2 on a small KITTI-format set ---------

@@ -63,3 +63,25 @@ def kitti_like_frames(cfg, seed, batch=2):
         clouds.append(p[:1500])
     n = min(len(c) for c in clouds)
     return np.stack([c[:n] for c in clouds]), np.full((batch,), n, np.int32)
+
+
+class ShardSet:
+    """A dataset for the loader tests: frame i is a seeded cloud and boxes
+    of its own (sizes vary), jittered by draws from ``self.rng``, which the
+    loaders swap for each batch's own generator, as the KITTI dataset's
+    augmentation draws."""
+
+    def __init__(self, n=37):
+        self.n = n
+        self.rng = np.random.default_rng(0)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        r = np.random.default_rng(1000 + i)
+        pts = r.normal(size=(int(r.integers(50, 300)), 4)).astype(np.float32)
+        pts[:, :3] += self.rng.normal(0, 0.1, 3).astype(np.float32)
+        g = int(r.integers(0, 5))
+        return dict(points=pts, boxes=r.normal(size=(g, 7)).astype(np.float32),
+                    class_idx=r.integers(0, 3, g).astype(np.int32), idx=i)

@@ -108,10 +108,18 @@ class DataLoader:
     ``num_workers=0`` (default) prefetches on one thread; ``num_workers>0``
     runs each batch's disk read, augmentation and collation in a pool of
     worker processes (augmentation is GIL-bound numpy, so threads cannot
-    feed a fast train step)."""
+    feed a fast train step).
+
+    ``num_shards`` / ``shard_id``: one process of several, each loading its
+    own shard of the global batch. Every shard builds the same shuffled
+    epoch order (the same seed) and keeps ``order[shard_id::num_shards]``;
+    ``batch_size`` is then the per-process batch (global / num_shards). A
+    worker's per-batch seed is XOR-ed with ``shard_id * 0x5BD1E995 &
+    0x7FFFFFFF``, so the shards draw different augmentations and shard 0
+    draws the one-process loader's."""
 
     def __init__(self, dataset, cfg: Config, batch_size=None, shuffle=True,
-                 drop_last=True, seed=0, num_workers=0):
+                 drop_last=True, seed=0, num_workers=0, num_shards=1, shard_id=0):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size or cfg.train.batch_size
@@ -119,15 +127,19 @@ class DataLoader:
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
         self.num_workers = num_workers
+        self.num_shards = num_shards
+        self.shard_id = shard_id
 
     def _order(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
         return order
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -157,7 +169,8 @@ class DataLoader:
         nb = len(self)
         jobs = [
             (order[i * self.batch_size : (i + 1) * self.batch_size],
-             int(self.rng.integers(0, 2**31)))
+             int(self.rng.integers(0, 2**31)) ^ (self.shard_id * 0x5BD1E995
+                                                 & 0x7FFFFFFF))
             for i in range(nb)
         ]
         ex = self._executor()

@@ -3,7 +3,9 @@
 
 Focal loss in the fvcore formulation (alpha 0.25, gamma 2) at all
 non-ignore sites, smooth-L1 at positive sites, both normalised by the
-batch-global positive count clamped to 1; total = cls + LAMBDA * reg.
+batch-global positive count clamped to 1 (under a process group, the
+global batch's: each rank's loss is then its share of the global loss);
+total = cls + LAMBDA * reg.
 """
 
 import math
@@ -13,6 +15,7 @@ import torch.nn.functional as F
 
 from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.core.targets import Targets
+from vision3d_tpu_torch.parallel.mesh import global_sum
 
 
 def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
@@ -37,7 +40,7 @@ def proposal_loss(cls_map, reg_map, targets: Targets, cfg: Config):
     """dict(loss, cls_loss, reg_loss). cls_map (B, n_cls, n_yaw, ny, nx)
     logits; reg_map (..., 7) deltas."""
     m_reg = targets.M_reg.to(cls_map.dtype)
-    normalizer = m_reg.sum().clamp(min=1.0)
+    normalizer = global_sum(m_reg.sum()).clamp(min=1.0)
 
     cls = sigmoid_focal_loss(cls_map, targets.G_cls)
     cls_loss = (cls * targets.M_cls.to(cls.dtype)).sum() / normalizer

@@ -18,11 +18,14 @@ float path of the JAX model carries it (the JAX package stops no
 gradient): the point branch back into the stage outputs and the RPN, the
 grid points back into the proposals' deltas.
 
-Everything but the middle extractor's sparse convs (the ``zwin_conv`` CUDA
-kernel in inference, ``gather_gemm`` and ``gather_rows`` in training) is
-plain PyTorch: FPS, ball query and grouping are XLA code in the
-JAX package, and the shared MLPs are cuBLAS GEMMs. Voxel backend only:
-the scales of the column backend are not ported.
+Everything but the middle extractor's sparse convs is plain PyTorch: FPS,
+ball query and grouping are XLA code in the JAX package, and the shared
+MLPs are cuBLAS GEMMs. On the voxel backend the convs are the ``zwin_conv``
+CUDA kernel in inference, ``gather_gemm`` and ``gather_rows`` in training;
+on the column backend (``cfg.sparse_backend = "column"``) they are
+``column_conv``, forward and dX, with ``gather_rows`` for dW, and the
+trunk's column scales are read back as voxels at each stage's voxel
+capacity. One state dict serves both backends.
 """
 
 import contextlib
@@ -91,9 +94,6 @@ class PV_RCNN(Second):
     the batch's statistics."""
 
     def __init__(self, cfg: Config, two_stage: bool = True):
-        if cfg.sparse_backend != "voxel":
-            raise NotImplementedError(
-                "PV-RCNN on the column backend is not ported (ROADMAP A16)")
         super().__init__(cfg)
         self.pnets = nn.ModuleList(
             SetAbstractionMSG(m[0][0], cfg.psa.radii[i], cfg.samples_pn,

@@ -21,6 +21,7 @@ from vision3d_tpu_torch.core.boxes import decode, encode
 from vision3d_tpu_torch.core.iou import pairwise_rotated_iou
 from vision3d_tpu_torch.models.losses import smooth_l1
 from vision3d_tpu_torch.models.pointnet import SetAbstractionMSG
+from vision3d_tpu_torch.parallel.mesh import global_sum
 
 _BEV_COLS = [0, 1, 3, 4, 6]
 
@@ -116,7 +117,8 @@ def refinement_loss(box_deltas, score_logits, proposals, proposal_valid,
     ``vision3d_tpu/models/refinement.py:129``: each proposal matches its
     highest rotated-BEV-IoU gt (``cfg.iou_angle_mode``, the lowest index
     among ties, as ``jnp.argmax``) and is foreground at IoU >= ``fg_iou``;
-    each term is normalised by its count clamped to 1. box_deltas (B, N,
+    each term is normalised by its count over the (global) batch clamped
+    to 1. box_deltas (B, N,
     7), score_logits (B, N), proposals (B, N, 7), proposal_valid (B, N),
     gt_boxes (B, G, 7), gt_mask (B, G) -> dict(refine_cls_loss,
     refine_reg_loss, refine_loss).
@@ -144,8 +146,9 @@ def refinement_loss(box_deltas, score_logits, proposals, proposal_valid,
     lbl = fg.to(score_logits.dtype)
     x = score_logits
     bce = x.clamp(min=0) - x * lbl + torch.log1p(torch.exp(-x.abs()))
-    cls_loss = (bce * valid).sum() / valid.sum().clamp(min=1.0)
+    counts = global_sum(torch.stack([valid.sum(), lbl.sum()])).clamp(min=1.0)
+    cls_loss = (bce * valid).sum() / counts[0]
     reg = smooth_l1(box_deltas, target).sum(-1)
-    reg_loss = (reg * lbl).sum() / lbl.sum().clamp(min=1.0)
+    reg_loss = (reg * lbl).sum() / counts[1]
     return dict(refine_cls_loss=cls_loss, refine_reg_loss=reg_loss,
                 refine_loss=cls_loss + reg_loss)

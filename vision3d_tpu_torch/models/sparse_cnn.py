@@ -44,6 +44,7 @@ from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops.column_conv import ColumnConvFn
 from vision3d_tpu_torch.ops.zwin_conv import zwin_conv
+from vision3d_tpu_torch.parallel.mesh import global_sum
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -72,11 +73,17 @@ class ColumnTensor:
     c: int = 4
 
     def to_voxel_sparse(self, cap: int) -> SparseTensor:
+        """The active sites as a voxel-sparse tensor of capacity ``cap``,
+        float32, in column-major key order (``ColumnTensor.to_voxel_sparse``,
+        vision3d_tpu/models/sparse_cnn.py:61). The sites are gathered before
+        the cast, so a bf16 tensor is not copied whole to float32; each
+        site is read once, so the gather's backward is a scatter into
+        zeros."""
         b, n, _ = self.feats.shape
-        f4 = self.feats.reshape(b, n, self.grid[0], self.c).float()
+        f4 = self.feats.reshape(b, n, self.grid[0], self.c)
         f, k, m = csp.columns_to_voxels(f4, self.zmask, self.keys, self.mask,
                                         self.grid, cap)
-        return SparseTensor(feats=f, keys=k, mask=m, grid=self.grid)
+        return SparseTensor(feats=f.float(), keys=k, mask=m, grid=self.grid)
 
 
 @dataclass
@@ -118,15 +125,20 @@ def from_voxels_columns(feats, coords, mask, grid, ncol_cap: int):
                         c=feats.shape[-1]), ndrop
 
 
-def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
+def dense_from_columns(ct: ColumnTensor, keep_keys: bool = False,
+                       voxel_cap: int = 0) -> DenseTensor:
     """ColumnTensor -> DenseTensor cutover for the dense late stages: a BEV
     slot map, then every cell fetches its column's flat (D*C) row (a miss
     reads a zero row), and one transpose into the z-major
     channels-last-3d layout (``dense_from_columns``,
-    vision3d_tpu/models/sparse_cnn.py:270, without its ``keep_keys``).
-    Where the rows take a gradient, the fetch is ``sp.DensifyFn`` on the
-    ``gather_rows`` kernel: each column row is read by one cell, its own,
-    so its gradient is one gather there."""
+    vision3d_tpu/models/sparse_cnn.py:270). Where the rows take a
+    gradient, the fetch is ``sp.DensifyFn`` on the ``gather_rows`` kernel:
+    each column row is read by one cell, its own, so its gradient is one
+    gather there. ``keep_keys`` carries the voxel keys and mask of
+    ``ct.to_voxel_sparse(voxel_cap or Ncol * D)`` along (PV-RCNN's scales):
+    column-major keys, which ``DenseTensor.to_voxel_sparse`` reads back
+    from the z-major volume; JAX's volume is (B, H, W, D, C) there
+    (``hwdc``), whose raster row is the key itself."""
     d, h, w = ct.grid
     b, n, _ = ct.feats.shape
     hw, c = h * w, ct.c
@@ -146,9 +158,13 @@ def dense_from_columns(ct: ColumnTensor) -> DenseTensor:
     feats = rows.reshape(b, h, w, d, c).permute(0, 4, 3, 1, 2)
     zt = F.pad(ct.zmask, (0, 0, 0, 1)).reshape(b * (n + 1), d)
     occ = zt[slot].reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+    keys = mask = None
+    if keep_keys:
+        vs = ct.to_voxel_sparse(voxel_cap or n * d)
+        keys, mask = vs.keys, vs.mask
     return DenseTensor(
         feats=feats.contiguous(memory_format=torch.channels_last_3d),
-        occ=occ, grid=ct.grid)
+        occ=occ, grid=ct.grid, keys=keys, mask=mask)
 
 
 def dense_from_sparse(st: SparseTensor, keep_keys: bool = False) -> DenseTensor:
@@ -245,8 +261,11 @@ class MaskedBatchNorm(nn.Module):
     rows (eps 1e-3). In training mode the statistics are the masked mean
     and the BIASED variance of the batch (count clamped to 1), also for
     the running update, with momentum 0.01 in torch's convention (flax
-    0.99), as ``vision3d_tpu/models/sparse_cnn.py:405-413``. Parameters use
-    torch's names; ``convert.py`` maps flax's scale/bias/mean/var onto them."""
+    0.99), as ``vision3d_tpu/models/sparse_cnn.py:405-413``; under a
+    process group they are the global batch's (the sums and the count
+    all-reduced, then the centred sum: two passes, as JAX computes them).
+    Parameters use torch's names; ``convert.py`` maps flax's
+    scale/bias/mean/var onto them."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -264,9 +283,10 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             axes = [a for a in range(x.dim()) if a != channel_dim % x.dim()]
             w = m.to(x.dtype)
-            n = w.sum().clamp(min=1.0)
-            mean = (x * w).sum(dim=axes) / n
-            var = ((x - mean.view(shape)).square() * w).sum(dim=axes) / n
+            sums = global_sum(torch.cat([(x * w).sum(dim=axes), w.sum()[None]]))
+            n = sums[-1].clamp(min=1.0)
+            mean = sums[:-1] / n
+            var = global_sum(((x - mean.view(shape)).square() * w).sum(dim=axes)) / n
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
@@ -286,15 +306,19 @@ def _column_bn_relu(bn, out, site, cdt):
     over the sites of (B, N, D) (count clamped to 1) and the one-pass
     variance max(E[x^2] - mean^2, 0), which also feed the running update
     at momentum 0.01; then x * g + (bias - mean * g), g = weight /
-    sqrt(var + eps)."""
+    sqrt(var + eps). Under a process group the two sums and the count are
+    the global batch's (one all-reduce)."""
     b, n, d = site.shape
     x = out.reshape(b, n, d, -1)
     if bn.training:
         w = site[..., None].to(x.dtype)
-        cnt = site.sum().to(x.dtype).clamp(min=1.0)
         xm = x * w
-        mean = xm.sum(dim=(0, 1, 2)) / cnt
-        var = ((xm * x).sum(dim=(0, 1, 2)) / cnt - mean.square()).clamp(min=0.0)
+        c = x.shape[-1]
+        sums = global_sum(torch.cat([xm.sum(dim=(0, 1, 2)), (xm * x).sum(dim=(0, 1, 2)),
+                                     site.sum().to(x.dtype)[None]]))
+        cnt = sums[-1].clamp(min=1.0)
+        mean = sums[:c] / cnt
+        var = (sums[c:2 * c] / cnt - mean.square()).clamp(min=0.0)
         with torch.no_grad():
             bn.running_mean.lerp_(mean, bn.momentum)
             bn.running_var.lerp_(var, bn.momentum)
@@ -496,13 +520,13 @@ class SpMiddleFHD(nn.Module):
         the active output columns each sparse stage's column capacity
         truncated.
 
-        ``need_scales`` (PV-RCNN's set abstraction, voxel backend only)
-        returns (bev, diagnostics, scales) with the four SparseTensors at
-        strides 1, 2, 4 and 8: the input, then the outputs of stages 0-2
-        (a dense stage's output read back at its compact key set)."""
-        if need_scales and isinstance(st, ColumnTensor):
-            raise NotImplementedError(
-                "need_scales on the column backend is not ported (ROADMAP A16)")
+        ``need_scales`` (PV-RCNN's set abstraction) returns (bev,
+        diagnostics, scales) with the four SparseTensors at strides 1, 2, 4
+        and 8: the input, then the outputs of stages 0-2. A ColumnTensor
+        scale i is read as voxels at ``cfg.stage_voxel_capacity(i)``, a
+        dense stage's output at its compact key set (on the column backend
+        the cutover's columns at that capacity, then each strided conv's
+        active set), as vision3d_tpu/models/sparse_cnn.py:797-806."""
         cfg = self.cfg
         dense_from = (cfg.train_dense_from_stage if self.training
                       else cfg.dense_from_stage)
@@ -518,7 +542,8 @@ class SpMiddleFHD(nn.Module):
                     x, cfg.stage_column_capacity(si), keep_keys=need_scales)
                 diag[f"stage{si}_densify_dropped"] = cdrop
             elif si >= dense_from and isinstance(x, ColumnTensor):
-                x = dense_from_columns(x)
+                x = dense_from_columns(x, keep_keys=need_scales,
+                                       voxel_cap=cfg.stage_voxel_capacity(si))
             rb = plan = None
             if isinstance(x, SparseTensor):
                 args = (x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
@@ -550,8 +575,10 @@ class SpMiddleFHD(nn.Module):
                 scales.append(x)
         if not need_scales:
             return to_bev(x), diag
-        scales = [s.to_voxel_sparse() if isinstance(s, DenseTensor) else s
-                  for s in scales[:-1]]
+        scales = [s.to_voxel_sparse(cfg.stage_voxel_capacity(i))
+                  if isinstance(s, ColumnTensor)
+                  else s.to_voxel_sparse() if isinstance(s, DenseTensor) else s
+                  for i, s in enumerate(scales[:-1])]
         return to_bev(x), diag, scales
 
 

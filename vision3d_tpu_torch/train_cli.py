@@ -1,5 +1,5 @@
-"""Training entry point of the PyTorch port, one card (counterpart of
-``vision3d_tpu/train_cli.py``).
+"""Training entry point of the PyTorch port, on one card or several
+(counterpart of ``vision3d_tpu/train_cli.py``).
 
     python -m vision3d_tpu_torch.train_cli --config configs/second/all_classes.yaml \\
         --data-root .../training --split-dir .../splitfiles --cache-dir .../cache
@@ -21,16 +21,57 @@ from a CPU generator seeded from (``--seed``, step).
 ``--dense-from 2`` or ``3`` (``cfg.train_dense_from_stage``) trains the
 late stages as dense masked volumes (cuDNN conv3d), for every ``--model``;
 a yaml with ``SPARSE_BACKEND: column`` trains on the column backend (BEV
-columns dense in z), also with ``--dense-from``. Not ported yet: several
-cards (the JAX package's device mesh, ROADMAP A14) and PV-RCNN on the
-column backend (A16).
+columns dense in z), for every ``--model`` and also with ``--dense-from``.
+
+Several cards: one process per card in a ``torch.distributed`` group
+(``parallel/mesh.py``). ``cfg.train.batch_size`` is the global batch; each
+process loads its shard of it (``DataLoader(num_shards, shard_id)``, with
+``--workers`` loader processes each) and the step's sums are the global
+batch's. With ``COORDINATOR_ADDRESS`` (host:port), ``NUM_PROCESSES`` and
+``PROCESS_ID`` set, this process is that rank (NCCL on the card, gloo with
+``--device cpu``); ``VISION3D_MULTIHOST=1`` reads torch's ``env://``
+variables. Without them, on ``cuda`` with several visible cards, it starts
+one process per card on the largest count that divides the batch (the JAX
+CLI's rule) and returns rank 0's records. Only rank 0 logs, prints and
+writes checkpoints; its epoch line counts the global batch's frames.
 """
 
 import argparse
 import dataclasses
+import json
+import os
+import sys
+import tempfile
 import time
 
 import numpy as np
+
+
+def _rank_main(rank, world, port, argv, out):
+    """One rank of ``main(argv)`` started by ``_launch``; rank 0 writes its
+    records to ``out``."""
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}",
+                      NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+    records = main(argv)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(records, f)
+
+
+def _launch(world, argv):
+    """``main(argv)`` in ``world`` spawned processes, one per card, joined
+    through a coordinator on a free localhost port. Returns rank 0's
+    records; a rank that fails ends the others and raises here."""
+    import torch.multiprocessing as mp
+
+    from vision3d_tpu_torch.parallel.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "records.json")
+        mp.start_processes(_rank_main, args=(world, free_port(), argv, out),
+                           nprocs=world, join=True, start_method="spawn")
+        with open(out) as f:
+            return json.load(f)
 
 
 def main(argv=None):
@@ -63,14 +104,7 @@ def main(argv=None):
     import torch
 
     from vision3d_tpu_torch.config import Config
-    from vision3d_tpu_torch.data.kitti import KittiDatasetTrain
-    from vision3d_tpu_torch.data.loader import DataLoader
-    from vision3d_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
-    from vision3d_tpu_torch.training.metrics import JsonlWriter, MetricLogger, StdoutWriter
-    from vision3d_tpu_torch.training.train import (create_pvrcnn_train_state,
-                                                   create_train_state,
-                                                   make_pvrcnn_train_step,
-                                                   make_train_step)
+    from vision3d_tpu_torch.parallel import mesh
 
     cfg = Config.from_yaml(args.config) if args.config else Config()
     overrides = {k: v for k, v in (("epochs", args.epochs),
@@ -81,10 +115,43 @@ def main(argv=None):
     cfg = with_data_overrides(cfg, args)
     if args.dense_from is not None:
         cfg = cfg.replace(train_dense_from_stage=args.dense_from)
-    device = torch.device(args.device)
+    joined = mesh.initialize_distributed(args.device)
+    device = mesh.local_device(args.device)
+    if not joined and device.type == "cuda" and args.device == "cuda":
+        world = mesh.devices_for(cfg.train.batch_size, torch.cuda.device_count())
+        if world > 1:
+            print(f"train_cli: one process on each of {world} of "
+                  f"{torch.cuda.device_count()} cards (batch {cfg.train.batch_size})",
+                  flush=True)
+            return _launch(world, argv if argv is not None else sys.argv[1:])
+    try:
+        return _train(args, cfg, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
-    dataset = KittiDatasetTrain(cfg, rng=np.random.default_rng(args.seed))
-    loader = DataLoader(dataset, cfg, seed=args.seed, num_workers=args.workers)
+
+def _train(args, cfg, device):
+    """The training loop of this process (a rank of a group, or alone)."""
+    import torch
+
+    from vision3d_tpu_torch.data.kitti import KittiDatasetTrain
+    from vision3d_tpu_torch.data.loader import DataLoader
+    from vision3d_tpu_torch.parallel import mesh
+    from vision3d_tpu_torch.training.checkpoint import maybe_resume, save_checkpoint
+    from vision3d_tpu_torch.training.metrics import JsonlWriter, MetricLogger, StdoutWriter
+    from vision3d_tpu_torch.training.train import (create_pvrcnn_train_state,
+                                                   create_train_state,
+                                                   make_pvrcnn_train_step,
+                                                   make_train_step)
+
+    world, rank = mesh.world_size(), mesh.rank()
+    lead = rank == 0
+    with mesh.rank0_first():      # rank 0 writes the annotation caches
+        dataset = KittiDatasetTrain(cfg, verbose=lead, rng=np.random.default_rng(args.seed))
+    loader = DataLoader(dataset, cfg, seed=args.seed,
+                        batch_size=mesh.local_batch(cfg.train.batch_size),
+                        num_workers=args.workers, num_shards=world, shard_id=rank)
     steps_per_epoch = len(loader)
     generator = torch.Generator().manual_seed(args.seed)
     if args.model == "second":
@@ -99,7 +166,8 @@ def main(argv=None):
     start_epoch = 0
     if args.resume:
         state, start_epoch = maybe_resume(cfg.train.ckpt_dir, state)
-    logger = MetricLogger(writers=[StdoutWriter(), JsonlWriter(args.metrics_jsonl)])
+    logger = (MetricLogger(writers=[StdoutWriter(), JsonlWriter(args.metrics_jsonl)])
+              if lead else None)
 
     records = []
     try:
@@ -117,21 +185,24 @@ def main(argv=None):
                 state, losses = step_fn(state, batch)
                 losses = {k: float(v) for k, v in losses.items()}
                 losses_seen.append(losses["loss"])
-                logger.update(state.step, losses)
+                if logger:
+                    logger.update(state.step, losses)
                 t0 = time.perf_counter()
             peak = None
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
                 peak = torch.cuda.max_memory_allocated(device)
             dt = time.perf_counter() - t_epoch
-            n_frames = steps_per_epoch * cfg.train.batch_size
-            print(f"epoch {epoch}: {dt:.1f}s ({n_frames / dt:.1f} frames/s; "
-                  f"host wait {t_host:.1f}s = {t_host / dt:.0%})"
-                  + (f"; peak memory {peak / 2**30:.2f} GiB" if peak else ""), flush=True)
+            n_frames = steps_per_epoch * cfg.train.batch_size     # the global batch's
+            if lead:
+                print(f"epoch {epoch}: {dt:.1f}s ({n_frames / dt:.1f} frames/s; "
+                      f"host wait {t_host:.1f}s = {t_host / dt:.0%})"
+                      + (f"; peak memory {peak / 2**30:.2f} GiB" if peak else "")
+                      + (f"; {world} processes" if world > 1 else ""), flush=True)
             path = None
             # save after every ckpt_interval_epochs-th epoch and the last one
-            if ((epoch + 1) % cfg.train.ckpt_interval_epochs == 0
-                    or epoch == cfg.train.epochs - 1):
+            if lead and ((epoch + 1) % cfg.train.ckpt_interval_epochs == 0
+                         or epoch == cfg.train.epochs - 1):
                 path = save_checkpoint(cfg.train.ckpt_dir, state, epoch)
                 print(f"saved {path}")
             records.append(dict(epoch=epoch, steps=len(losses_seen), seconds=dt,

@@ -26,6 +26,15 @@ keypoint-segmentation loss, with gradients everywhere. Each two-stage step
 draws the grid points and the random background keypoints from a CPU
 generator seeded from (seed, step), so the card and the CPU draw alike;
 the draws are those of JAX's distributions, not its numbers.
+
+In a process group (``parallel/mesh.py``, one process per card, each on its
+shard of the global batch) a step computes what the JAX mesh computes over
+the global batch: the batch norms' statistics and the loss normalisers are
+global sums, so each rank's loss is its share of the global loss; the
+gradients are summed over the ranks before the clip, so every rank makes
+the same update; the losses and the counters a step returns are the global
+batch's; and a two-stage step draws for the global batch and takes its
+rank's slice.
 """
 
 import math
@@ -44,6 +53,7 @@ from vision3d_tpu_torch.models.losses import proposal_loss
 from vision3d_tpu_torch.models.pvrcnn import PV_RCNN, init_pvrcnn
 from vision3d_tpu_torch.models.refinement import refinement_loss
 from vision3d_tpu_torch.models.second import Second, init_second
+from vision3d_tpu_torch.parallel import mesh
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int):
@@ -161,10 +171,11 @@ def _make_step(model, tx: Optimizer, cfg: Config, anchors, losses_of):
         tx.zero_grad()
         losses, diag = losses_of(state, batch, targets, anchors, **draws)
         losses["loss"].backward()
+        mesh.all_reduce_gradients(tx.params)
         tx.step(state.step)
         state.step += 1
-        state.diagnostics = diag
-        return state, {k: v.detach() for k, v in losses.items()}
+        state.diagnostics = mesh.sum_over_ranks(diag)
+        return state, mesh.sum_over_ranks({k: v.detach() for k, v in losses.items()})
 
     return train_step
 
@@ -217,13 +228,14 @@ def keypoint_seg_loss(seg_logits, keypoints, batch, neg, cfg: Config):
     """Softmax cross-entropy of the keypoint-segmentation logits (B, K,
     n_cls + 1) against the class and background channels of
     ``assign_refinement_targets_keypoints``, over the keypoints whose
-    ignore channel is off, normalised by their count clamped to 1."""
+    ignore channel is off, normalised by their count over the (global)
+    batch clamped to 1."""
     with torch.no_grad():
         cls_t, _ = assign_refinement_targets_keypoints(
             neg, keypoints, batch["boxes"], batch["class_idx"], batch["gt_mask"], cfg)
     valid = cls_t[..., -1] == 0.0
     ce = -(cls_t[..., :-1] * F.log_softmax(seg_logits, dim=-1)).sum(-1)
-    return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, ce, 0.0).sum() / mesh.global_sum(valid.sum()).clamp(min=1)
 
 
 def make_pvrcnn_train_step(model: PV_RCNN, tx: Optimizer, cfg: Config, anchors=None,
@@ -243,9 +255,11 @@ def make_pvrcnn_train_step(model: PV_RCNN, tx: Optimizer, cfg: Config, anchors=N
 
     def two_stage_losses(state, batch, targets, anchors, u=None, neg=None):
         if u is None or neg is None:
-            du, dneg = pvrcnn_draws(cfg, batch["points"].shape[0], seed, state.step)
-            u = du if u is None else u
-            neg = dneg if neg is None else neg
+            # drawn for the global batch; each rank takes its slice
+            du, dneg = pvrcnn_draws(cfg, batch["points"].shape[0] * mesh.world_size(),
+                                    seed, state.step)
+            u = mesh.rank_slice(du) if u is None else u
+            neg = mesh.rank_slice(dneg) if neg is None else neg
         out, diag = model.two_stage(batch["points"], batch["num_points"], anchors, u=u)
         losses = proposal_loss(out["cls_map"], out["reg_map"], targets, cfg)
         refine = refinement_loss(
