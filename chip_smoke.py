@@ -161,7 +161,19 @@ Phases, each printing lines before the last:
      gradients, running statistics and counters, parameters after the step
      bit-equal across the ranks; then train_cli as rank 0 of a world of
      one over NCCL through the coordinator variables, whose first-step
-     loss must equal a plain train_cli run's.
+     loss must equal a plain train_cli run's;
+ 12. the benchmark entry points, in process at full width (BENCH_RUNS):
+     ``vision3d_tpu_torch.bench.main`` for SECOND on the voxel backend and
+     on the column backend at the defaults (1 class, fresh seeded init,
+     bf16, batch 8 x 18,000 points, 20 forwards a chain, 5 timed chains)
+     and for PV-RCNN's two stages (2 forwards a chain, 2 timed chains),
+     ``bench_train.main`` at its defaults (5 steps a chain, 3 timed
+     chains, every stage sparse): each prints exactly one JSON line, shown
+     here on a line of its own; its launches per forward or step (the
+     run's launches over the forwards or steps its flags make) are the
+     path's, every other kernel launched no time; capacity counters 0,
+     finite outputs (the entry points raise on a non-finite checksum or
+     loss), finite timings.
 The last line is {"ok": true, "device": {...}}; the one before it lists
 the kernels as JSON, and the one before that is the card's name and
 power limit from nvidia-smi.
@@ -2412,6 +2424,53 @@ def ddp_cli_phase():
     return out
 
 
+# phase 12: {label: (entry point module, argv, the path's launches per
+# forward or step: "zwin" / "column" inference, "train" all-sparse step)}
+BENCH_RUNS = {
+    "bench second": ("bench", [], "zwin"),
+    "bench second --backend column": ("bench", ["--backend", "column"], "column"),
+    "bench pvrcnn2": ("bench", ["--model", "pvrcnn2", "--iters", "2", "--warmup", "2"],
+                      "zwin"),
+    "bench_train": ("bench_train", [], "train"),
+}
+
+
+def bench_phase(per_unit):
+    """Phase 12: each of BENCH_RUNS through its entry point's ``main`` in
+    this process; ``per_unit`` maps BENCH_RUNS' path names to the launches
+    of one forward or step. Returns {label: (the JSON record, the launches
+    per forward or step)}."""
+    import importlib
+
+    out = {}
+    for label, (module, argv, path) in BENCH_RUNS.items():
+        entry = importlib.import_module(f"vision3d_tpu_torch.{module}")
+        args = entry.parse_args(argv)
+        # bench: one counted forward, then a first chain and the timed ones;
+        # bench_train: a first chain and the timed ones
+        units = (args.iters * (1 + args.reps) if module == "bench_train"
+                 else 1 + args.iters * (1 + args.warmup))
+        want = {k: v * units for k, v in per_unit[path].items()}
+        buf = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(buf):
+            record, launches = counted(lambda: entry.main(argv), want)
+        lines = buf.getvalue().splitlines()
+        check(len(lines) == 1 and json.loads(lines[0]) == record,
+              f"{label}: expected one JSON line, printed {lines}")
+        print(f"{label} ({units} {'steps' if path == 'train' else 'forwards'}):", flush=True)
+        print(lines[0], flush=True)
+        for k in ("value", "compile_s", "peak_mem_gib"):
+            check(np.isfinite(record[k]) and record[k] > 0, f"{label}: {k} {record[k]}")
+        if module == "bench":
+            check(all(v == 0 for v in record["stage_dropped"]),
+                  f"{label}: capacity counters {record['stage_dropped']}")
+            check(record["n_devices"] == 1, f"{label}: n_devices {record['n_devices']}")
+        out[label] = (record, {k: v // units for k, v in launches.items() if v})
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2698,6 +2757,13 @@ def main():
     print(f"train_cli as rank 0 of a world of one over NCCL vs plain (float32, 16 frames): "
           f"{ddpcli}", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    benches = bench_phase({"zwin": want_zwin, "column": want_col, "train": expected})
+    for label, (_, per) in benches.items():
+        print(f"{label}: launches per {'step' if 'train' in label else 'forward'} {per}",
+              flush=True)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2726,6 +2792,10 @@ def main():
          # PV-RCNN's trunk (phase 8): per two-stage forward and per eval_cli batch
          "launches_pvrcnn_per_forward": pv["launches"],
          "launches_eval_cli_pvrcnn2_per_batch": pvcli["per_batch"],
+         # the benchmark entry point (phase 12): per forward of SECOND and of
+         # PV-RCNN's two stages
+         "launches_bench_second_per_forward": benches["bench second"][1],
+         "launches_bench_pvrcnn2_per_forward": benches["bench pvrcnn2"][1],
          "ms": per(shapes, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(shapes, "bf16_bound_ms", "launches_per_forward"),
@@ -2759,6 +2829,9 @@ def main():
          "launches_train_cli_forms_per_step": {
              n: {k: v for k, v in r["train_per_step"].items() if k.startswith("gather_gemm")}
              for n, r in fcli.items() if n != "second_column"},
+         # the training-step benchmark entry point (phase 12), per step
+         "launches_bench_train_per_step": {
+             k: v for k, v in benches["bench_train"][1].items() if k.startswith("gather_gemm")},
          "ms": per(gg_rows, "bf16_ms"), "plain_ms": per(gg_rows, "bf16_plain_ms"),
          "bound_ms": per(gg_rows, "bf16_bound_ms"), "bound_by": bound_by(gg_rows),
          # no single PyTorch call gathers K rows per output and multiplies
@@ -2789,6 +2862,7 @@ def main():
                                                    for n, r in pvct.items()},
          "launches_train_cli_pvrcnn_column_per_step":
              pvccli["pvrcnn2_column"]["train_per_step"]["gather_rows"],
+         "launches_bench_train_per_step": benches["bench_train"][1]["gather_rows"],
          "max_abs_err": max(r["bf16_max_abs_err"] for r in gr_rows),
          "ms": per(gr_rows, "bf16_ms"), "plain_ms": per(gr_rows, "bf16_plain_ms"),
          "bound_ms": per(gr_rows, "bf16_bound_ms"), "bound_by": bound_by(gr_rows),
@@ -2832,6 +2906,8 @@ def main():
          # dense_from_stage 2, per training step of each mode at 4 and 2
          # (bf16), per train_cli --model pvrcnn2 step (float32)
          "launches_pvrcnn_column_per_forward": pvc["launches"],
+         # the benchmark entry point on columns (phase 12), per forward
+         "launches_bench_column_per_forward": benches["bench second --backend column"][1],
          "launches_pvrcnn_column_train_per_step": {
              n: {k: v for k, v in r["launches"].items() if k.startswith("column_conv")}
              for n, r in pvct.items()},

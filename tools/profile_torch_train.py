@@ -13,10 +13,12 @@ synthetic points with 32 ground-truth boxes per frame, fresh seeded init
     unprofiled p50.
 
     python tools/profile_torch_train.py [--iters 3] [--backend {voxel,column}]
-        [--dense-from-stage N]
+        [--dense-from-stage N] [--bench]
 
 ``--backend`` and ``--dense-from-stage`` (``cfg.train_dense_from_stage``,
-default 4: every stage sparse) pick the training form.
+default 4: every stage sparse) pick the training form. ``--bench`` takes
+the workload of ``python -m vision3d_tpu_torch.bench_train`` instead:
+``Config()`` with one class, every box a car.
 """
 
 import argparse
@@ -30,6 +32,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from vision3d_tpu_torch.bench import bench_config  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
 from vision3d_tpu_torch.core.anchors import make_anchors  # noqa: E402
 from vision3d_tpu_torch.core.targets import assign_targets_batch  # noqa: E402
@@ -81,16 +84,22 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--backend", default="voxel", choices=["voxel", "column"])
     ap.add_argument("--dense-from-stage", type=int, default=4)
+    ap.add_argument("--bench", action="store_true",
+                    help="bench_train's workload: Config() with one class")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    cfg = Config.from_yaml(str(ROOT / "configs/second/all_classes.yaml")).replace(
-        compute_dtype="bfloat16", sparse_backend=args.backend,
-        train_dense_from_stage=args.dense_from_stage)
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in kitti_like_train_batch(0, 8, 18000, cfg=cfg).items()}
+    form = dict(compute_dtype="bfloat16", sparse_backend=args.backend,
+                train_dense_from_stage=args.dense_from_stage)
+    if args.bench:
+        cfg = bench_config().replace(**form)
+        data = kitti_like_train_batch(0, 8, 18000)
+    else:
+        cfg = Config.from_yaml(str(ROOT / "configs/second/all_classes.yaml")).replace(**form)
+        data = kitti_like_train_batch(0, 8, 18000, cfg=cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     model, tx, state = create_train_state(cfg, torch.Generator().manual_seed(0),
                                           steps_per_epoch=928, device=dev)
     anchors = torch.as_tensor(make_anchors(cfg), device=dev)

@@ -1,11 +1,13 @@
 """Greedy rotated NMS with fixed capacity (port of
-``vision3d_tpu/core/nms.py:25-80``).
+``vision3d_tpu/core/nms.py``).
 
-Batched over a leading dim. The full same-group (K, K) IoU matrix is built
-once; the greedy scan runs as a fixpoint iteration (keep'[i] = no kept
-higher-ranked box suppresses i), which converges to the unique greedy
-solution in chain-depth steps. Suppression is strict ``>`` as in the
-reference's nms_rotated_cpu.cpp.
+``nms_rotated`` is batched over a leading dim; ``batched_nms_rotated``,
+``nms`` and ``batched_nms`` take one set of boxes, as the JAX package's
+do, and the axis-aligned two run the rotated machinery at angle 0. The
+full same-group (K, K) IoU matrix is built once; the greedy scan runs as a
+fixpoint iteration (keep'[i] = no kept higher-ranked box suppresses i),
+which converges to the unique greedy solution in chain-depth steps.
+Suppression is strict ``>`` as in the reference's nms_rotated_cpu.cpp.
 """
 
 import torch
@@ -46,3 +48,33 @@ def nms_rotated(boxes, scores, group_idx=None, valid=None, iou_threshold=0.01,
     out = torch.zeros_like(keep)
     out.scatter_(1, order, keep)
     return out
+
+
+def batched_nms_rotated(boxes, scores, idxs, valid=None, iou_threshold=0.01,
+                        angle_mode="degrees"):
+    """Per-group rotated NMS of one set: boxes (K, 5), scores (K,), idxs
+    (K,) groups (None: one group), optional valid (K,) -> keep (K,) bool."""
+    def one(x):
+        return None if x is None else x[None]
+
+    return nms_rotated(boxes[None], scores[None], one(idxs), one(valid),
+                       iou_threshold, angle_mode)[0]
+
+
+def _center_form(boxes_xyxy):
+    """(K, 4) corner boxes -> (K, 5) centre boxes at angle 0."""
+    x1, y1, x2, y2 = boxes_xyxy.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1,
+                        torch.zeros_like(x1)], dim=-1)
+
+
+def nms(boxes_xyxy, scores, valid=None, iou_threshold=0.5):
+    """Axis-aligned NMS over (K, 4) corner boxes -> keep (K,) bool."""
+    return batched_nms_rotated(_center_form(boxes_xyxy), scores, None, valid,
+                               iou_threshold, "radians")
+
+
+def batched_nms(boxes_xyxy, scores, idxs, valid=None, iou_threshold=0.5):
+    """Per-group axis-aligned NMS over (K, 4) corner boxes -> keep (K,) bool."""
+    return batched_nms_rotated(_center_form(boxes_xyxy), scores, idxs, valid,
+                               iou_threshold, "radians")

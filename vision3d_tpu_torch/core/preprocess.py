@@ -2,10 +2,9 @@
 
 Voxelization runs on the device inside the model, so the host only pads
 point clouds to a fixed capacity; ``Preprocessor.voxelize_host`` gives
-reference-shaped (features, coords, occupancy) arrays from the numpy
-voxelizer for pipelines that want them. The JAX package's optional C++
-host voxelizer (``vision3d_tpu/csrc/vision3d_host.cpp``) is not ported:
-it is a host speed-up with this same numpy fallback, not a device kernel.
+reference-shaped (features, coords, occupancy) arrays for pipelines that
+want them, from the native C++ host voxelizer (``utils/native.py``) when
+it builds here, else from the numpy voxelizer, as the JAX package does.
 """
 
 import numpy as np
@@ -24,7 +23,12 @@ class Preprocessor:
 
     def voxelize_host(self, points: np.ndarray):
         """Host voxelization: (features (Nv, K, C), coords (Nv, 3) ZYX,
-        occupancy (Nv,)), as ``vision3d_tpu.core.voxelize.voxelize_np``."""
+        occupancy (Nv,)). Uses the native C++ library when available, else
+        the numpy version (the same arrays)."""
+        from vision3d_tpu_torch.utils import native
+
+        if native.available():
+            return native.hard_voxelize(points, self.cfg)
         return voxelize_np(points, self.cfg)
 
     def __call__(self, item: dict) -> dict:

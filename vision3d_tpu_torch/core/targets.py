@@ -8,7 +8,8 @@ anchor grid; anchors stratified into {background 0, ignore -1, positive
 per gt rescued (``allow_low_quality_matches``); the per-box ignore mask
 applied; then classification targets (ignore -> mask) and VoxelNet-encoded
 regression targets at positive sites. With no gt of a class every anchor is
-background. ``subsample_labels`` (unused by the models) is not ported.
+background. ``subsample_labels`` (``:120``, unused by the models; part of
+the public ops surface) draws a balanced positive / negative subsample.
 
 Keypoint targets: a keypoint within its class's ``radius`` of a gt centre
 is a positive of that class; one-hot class targets carry a background and
@@ -113,6 +114,38 @@ def assign_targets(boxes, class_idx, gt_mask, box_ignore, anchors,
     t = assign_targets_batch(boxes[None], class_idx[None], gt_mask[None],
                              box_ignore[None], anchors, cfg, iou_chunk)
     return Targets(*(x[0] for x in t))
+
+
+def subsample_choice(labels, u_pos, u_neg, num_samples, positive_fraction,
+                     bg_label=0):
+    """The choice of ``subsample_labels`` given its uniform scores ``u_pos``
+    and ``u_neg`` (each ``labels.shape``): at most ``int(num_samples *
+    positive_fraction)`` positives (labels neither -1 nor ``bg_label``),
+    the rest of ``num_samples`` negatives (``bg_label``), each set the
+    lowest-scoring of its members (non-members score 2.0, stable sort).
+    Returns (pos_mask, neg_mask) bool over ``labels``."""
+    pos = (labels != -1) & (labels != bg_label)
+    neg = labels == bg_label
+    num_pos = pos.sum().clamp(max=int(num_samples * positive_fraction))
+    num_neg = neg.sum().clamp(max=num_samples - num_pos)
+
+    def pick(u, mask, count):
+        order = torch.sort(torch.where(mask, u, 2.0), stable=True).indices
+        keep = torch.zeros_like(mask)
+        keep[order] = torch.arange(len(order), device=labels.device) < count
+        return keep
+
+    return pick(u_pos, pos, num_pos), pick(u_neg, neg, num_neg)
+
+
+def subsample_labels(generator, labels, num_samples, positive_fraction, bg_label=0):
+    """Pos/neg balanced random subsample (reference matcher.py:133-174):
+    ``subsample_choice`` on two (N,) uniform draws from ``generator`` (a
+    CPU generator; JAX draws the same distribution from its key's two
+    halves). Returns (pos_mask, neg_mask) bool over ``labels`` (N,)."""
+    u = torch.rand((2,) + tuple(labels.shape), generator=generator).to(labels.device)
+    return subsample_choice(labels, u[0], u[1], num_samples, positive_fraction,
+                            bg_label)
 
 
 def assign_refinement_targets_keypoints(neg, keypoints, gt_boxes, gt_class,

@@ -20,8 +20,10 @@ is communicated. In one, every collective runs, also at world size 1.
 """
 
 import contextlib
+import json
 import os
 import socket
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -106,6 +108,32 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _rank_main(rank, fn, world, port, argv, out):
+    """One rank of ``fn(argv)`` started by ``launch``; rank 0 writes what
+    it returns to ``out`` as JSON."""
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}",
+                      NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
+    result = fn(argv)
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
+
+
+def launch(fn, world: int, argv):
+    """``fn(argv)`` (a module-level entry point that joins the group the
+    coordinator variables describe) in ``world`` spawned processes, one per
+    card, joined through a coordinator on a free localhost port. Returns
+    rank 0's result; a rank that fails ends the others and raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "result.json")
+        mp.start_processes(_rank_main, args=(fn, world, free_port(), argv, out),
+                           nprocs=world, join=True, start_method="spawn")
+        with open(out) as f:
+            return json.load(f)
 
 
 @contextlib.contextmanager

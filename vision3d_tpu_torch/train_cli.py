@@ -38,40 +38,10 @@ writes checkpoints; its epoch line counts the global batch's frames.
 
 import argparse
 import dataclasses
-import json
-import os
 import sys
-import tempfile
 import time
 
 import numpy as np
-
-
-def _rank_main(rank, world, port, argv, out):
-    """One rank of ``main(argv)`` started by ``_launch``; rank 0 writes its
-    records to ``out``."""
-    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}",
-                      NUM_PROCESSES=str(world), PROCESS_ID=str(rank))
-    records = main(argv)
-    if rank == 0:
-        with open(out, "w") as f:
-            json.dump(records, f)
-
-
-def _launch(world, argv):
-    """``main(argv)`` in ``world`` spawned processes, one per card, joined
-    through a coordinator on a free localhost port. Returns rank 0's
-    records; a rank that fails ends the others and raises here."""
-    import torch.multiprocessing as mp
-
-    from vision3d_tpu_torch.parallel.mesh import free_port
-
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "records.json")
-        mp.start_processes(_rank_main, args=(world, free_port(), argv, out),
-                           nprocs=world, join=True, start_method="spawn")
-        with open(out) as f:
-            return json.load(f)
 
 
 def main(argv=None):
@@ -123,7 +93,7 @@ def main(argv=None):
             print(f"train_cli: one process on each of {world} of "
                   f"{torch.cuda.device_count()} cards (batch {cfg.train.batch_size})",
                   flush=True)
-            return _launch(world, argv if argv is not None else sys.argv[1:])
+            return mesh.launch(main, world, argv if argv is not None else sys.argv[1:])
     try:
         return _train(args, cfg, device)
     finally:

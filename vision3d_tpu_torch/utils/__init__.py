@@ -1,1 +1,2 @@
-"""Host utilities: the BEV image (``bev_drawer``)."""
+"""Host utilities: the BEV image (``bev_drawer``) and the native host
+library (``native``)."""
