@@ -3,14 +3,16 @@
 Full KITTI geometry, configs/second/all_classes.yaml with the exported
 trained weights, bf16, batch 8 x 18,000 synthetic points (the
 chip_smoke.py workload), on the voxel or the column backend. Prints:
-  * per-stage times from CUDA events (median of --iters forwards):
-    voxelize + VFE + sort, the SpMiddleFHD middle extractor, RPN + head,
-    decode + NMS;
   * the p50 host-clock latency of unprofiled forwards;
-  * a torch.profiler table of ops and device kernels by device time over
-    --iters forwards, the device kernel time per forward, and its share
-    of the unprofiled latency (the profiler's own host cost makes the
-    profiled window's wall time useless for that).
+  * from one torch.profiler trace of --iters forwards, every program span
+    (``v3d:<name>``, ``training/profiler.annotate``) a forward: calls,
+    device ms of the kernels launched while it is open, idle ms inside it,
+    self ms (its time less its child spans') and the idle ms of that self
+    time (``benchmark/harness/program_spans.py`` reads the trace);
+  * the same trace's table of ops and device kernels by device time, the
+    device kernel time per forward, and its share of the unprofiled
+    latency (the profiler's own host cost makes the profiled window's
+    wall time useless for that).
 
     python tools/profile_torch_second.py [--iters 5] [--backend {voxel,column}]
         [--dense-from-stage N]
@@ -25,38 +27,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
 
 from vision3d_tpu_torch import convert  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
-from vision3d_tpu_torch.core.voxelize import voxelize_batch  # noqa: E402
-from vision3d_tpu_torch.models.head import head_inference  # noqa: E402
-from vision3d_tpu_torch.models.second import build_middle_input, create_second  # noqa: E402
+from vision3d_tpu_torch.models.second import create_second  # noqa: E402
 from vision3d_tpu_torch.synthetic import kitti_like_batch  # noqa: E402
-
-
-def stages(model, anchors, points, num):
-    """One forward split at stage boundaries, each bracketed by events."""
-    cfg = model.cfg
-    marks = [("start", torch.cuda.Event(enable_timing=True))]
-    marks[-1][1].record()
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    st, _ = build_middle_input(cfg, voxelize_batch(points, num, cfg))
-    mark("voxelize+vfe+" + ("columns" if cfg.sparse_backend == "column" else "sort"))
-    bev, _ = model.cnn(st)
-    mark("middle (plans, sparse convs, densify, dense convs)")
-    cls_map, reg_map = model.head(model.rpn(bev.permute(0, 3, 1, 2).float()))
-    mark("rpn+head")
-    head_inference(cls_map, reg_map, anchors, cfg)
-    mark("decode+nms")
-    torch.cuda.synchronize()
-    return {name: marks[i][1].elapsed_time(ev)
-            for i, (name, ev) in enumerate(marks[1:])}
+from harness import program_spans, trace  # noqa: E402
 
 
 def main(argv=None):
@@ -92,16 +69,11 @@ def main(argv=None):
             wall.append(1e3 * (time.perf_counter() - t0))
         p50 = float(np.median(wall))
         print(f"latency p50 {p50:.3f} ms over {args.iters} forwards")
-        runs = [stages(model, anchors, points, num) for _ in range(args.iters)]
-        for name in runs[0]:
-            print(f"stage {name}: {np.median([r[name] for r in runs]):.3f} ms")
-        print(f"stage total: {np.median([sum(r.values()) for r in runs]):.3f} ms")
-
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with trace.profiler() as prof:
             for _ in range(args.iters):
                 model.inference(points, num, anchors)
             torch.cuda.synchronize()
+    print(program_spans.format_table(trace.Trace(prof), args.iters, "forward"))
     events = prof.key_averages()
     # kernels only: an aten op's row repeats the device time of its kernels
     dev_us = sum(e.self_device_time_total for e in events

@@ -4,13 +4,16 @@ a GPU.
 Full KITTI geometry, configs/second/all_classes.yaml, bf16, batch 8 x 18,000
 synthetic points with 32 ground-truth boxes per frame, fresh seeded init
 (the chip_smoke.py training workload). Prints:
-  * per-part times from CUDA events (median of --iters steps): target
-    assignment, voxelize + VFE + sort, the sparse middle extractor, RPN +
-    head, loss, backward, clip + Adam;
   * the p50 host-clock time of unprofiled steps and the peak memory;
-  * a torch.profiler table of ops and device kernels by device time over
-    --iters steps, the device kernel time per step and its share of the
-    unprofiled p50.
+  * from one torch.profiler trace of --iters steps, every program span
+    (``v3d:<name>``, ``training/profiler.annotate``: target assignment,
+    the loss's forward and its layers, backward, all-reduce, optimizer) a
+    step: calls, device ms of the kernels launched while it is open (on
+    any thread: autograd launches the backward's from its own), idle ms
+    inside it, self ms (its time less its child spans') and the idle ms of
+    that self time (``benchmark/harness/program_spans.py`` reads the trace);
+  * the same trace's table of ops and device kernels by device time, the
+    device kernel time per step and its share of the unprofiled p50.
 
     python tools/profile_torch_train.py [--iters 3] [--backend {voxel,column}]
         [--dense-from-stage N] [--bench]
@@ -30,53 +33,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
 
 from vision3d_tpu_torch.bench import bench_config  # noqa: E402
 from vision3d_tpu_torch.config import Config  # noqa: E402
 from vision3d_tpu_torch.core.anchors import make_anchors  # noqa: E402
-from vision3d_tpu_torch.core.targets import assign_targets_batch  # noqa: E402
-from vision3d_tpu_torch.core.voxelize import voxelize_batch  # noqa: E402
-from vision3d_tpu_torch.models.losses import proposal_loss  # noqa: E402
-from vision3d_tpu_torch.models.second import build_middle_input  # noqa: E402
 from vision3d_tpu_torch.synthetic import kitti_like_train_batch  # noqa: E402
 from vision3d_tpu_torch.training.train import create_train_state, make_train_step  # noqa: E402
-
-
-def parts(model, tx, state, batch, anchors):
-    """One training step split at its parts, each bracketed by events."""
-    cfg = model.cfg
-    marks = [("start", torch.cuda.Event(enable_timing=True))]
-    marks[-1][1].record()
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    with torch.no_grad():
-        targets = assign_targets_batch(batch["boxes"], batch["class_idx"],
-                                       batch["gt_mask"], batch["box_ignore"],
-                                       anchors, cfg)
-    mark("target assignment")
-    tx.zero_grad()
-    vox = voxelize_batch(batch["points"], batch["num_points"], cfg)
-    st, _ = build_middle_input(cfg, vox)
-    mark("voxelize+vfe+sort")
-    bev, _ = model.cnn(st)
-    mark("middle forward (plans, sparse convs, densify, dense convs, masked BN, to_bev)")
-    cls_map, reg_map = model.head(model.rpn(bev.permute(0, 3, 1, 2).float()))
-    mark("rpn+head forward")
-    loss = proposal_loss(cls_map, reg_map, targets, cfg)["loss"]
-    mark("loss")
-    loss.backward()
-    mark("backward")
-    tx.step(state.step)
-    state.step += 1
-    mark("clip+adam")
-    torch.cuda.synchronize()
-    return {name: marks[i][1].elapsed_time(ev)
-            for i, (name, ev) in enumerate(marks[1:])}
+from harness import program_spans, trace  # noqa: E402
 
 
 def main(argv=None):
@@ -119,16 +83,11 @@ def main(argv=None):
     p50 = float(np.median(wall))
     print(f"step p50 {p50:.3f} ms over {args.iters} steps, peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    runs = [parts(model, tx, state, batch, anchors) for _ in range(args.iters)]
-    for name in runs[0]:
-        print(f"part {name}: {np.median([r[name] for r in runs]):.3f} ms")
-    print(f"part total: {np.median([sum(r.values()) for r in runs]):.3f} ms")
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with trace.profiler() as prof:
         for _ in range(args.iters):
             step(state, batch)
         torch.cuda.synchronize()
+    print(program_spans.format_table(trace.Trace(prof), args.iters, "step"))
     events = prof.key_averages()
     # kernels only: an aten op's row repeats the device time of its kernels
     dev_us = sum(e.self_device_time_total for e in events

@@ -24,6 +24,7 @@ from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.core.boxes import encode
 from vision3d_tpu_torch.core.iou import pairwise_rotated_iou_chunked
 from vision3d_tpu_torch.ops.fps import squared_distance
+from vision3d_tpu_torch.training.profiler import annotate
 
 _BEV_COLS = [0, 1, 3, 4, 6]
 
@@ -57,13 +58,15 @@ def assign_targets_batch(boxes, class_idx, gt_mask, box_ignore, anchors,
     # against its own class's anchors alone (the JAX package computes every
     # class's and zeroes the others: the same values at a third of the work
     # for three classes).
-    own = anchors_flat[..., _BEV_COLS][class_idx.clamp(0, n_cls - 1).long()]
+    with annotate("sync"):
+        own, boxes_bev = anchors_flat[..., _BEV_COLS], boxes[..., None, _BEV_COLS]
     iou_own = pairwise_rotated_iou_chunked(
-        boxes[..., None, _BEV_COLS], own, angle_mode=cfg.iou_angle_mode,
-        chunk=iou_chunk)[:, :, 0]                             # (B, G, A)
+        boxes_bev, own[class_idx.clamp(0, n_cls - 1).long()],
+        angle_mode=cfg.iou_angle_mode, chunk=iou_chunk)[:, :, 0]   # (B, G, A)
 
-    thr = torch.tensor([c.iou_thresh for c in cfg.anchors[:n_cls]],
-                       dtype=iou_own.dtype, device=dev)
+    with annotate("sync"):
+        thr = torch.tensor([c.iou_thresh for c in cfg.anchors[:n_cls]],
+                           dtype=iou_own.dtype, device=dev)
     lows, highs = thr[:, 0:1], thr[:, 1:2]                    # (n_cls, 1)
 
     # gt row g takes part in class c's matching iff valid and of class c
@@ -168,10 +171,11 @@ def assign_refinement_targets_keypoints(neg, keypoints, gt_boxes, gt_class,
     bsz, k = keypoints.shape[:2]
     g = gt_boxes.shape[1]
     dev = keypoints.device
-    radii = torch.tensor([a.radius for a in cfg.anchors[:n_cls]],
-                         dtype=torch.float32, device=dev)
-    sizes = torch.tensor([a.wlh for a in cfg.anchors[:n_cls]],
-                         dtype=torch.float32, device=dev)
+    with annotate("sync"):
+        radii = torch.tensor([a.radius for a in cfg.anchors[:n_cls]],
+                             dtype=torch.float32, device=dev)
+        sizes = torch.tensor([a.wlh for a in cfg.anchors[:n_cls]],
+                             dtype=torch.float32, device=dev)
     cls = gt_class.long()
 
     d = torch.sqrt(squared_distance(keypoints[:, :, None, :],

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from vision3d_tpu_torch.config import Config
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def grid_dims_xyz(cfg: Config) -> tuple:
@@ -47,9 +48,10 @@ def voxelize_batch(points, num_points, cfg: Config) -> dict:
     n, k = cfg.max_voxels, cfg.max_occupancy
     nx, ny, nz = grid_dims_xyz(cfg)
     dev = points.device
-    lo = torch.tensor(cfg.grid_bounds[:3], dtype=points.dtype, device=dev)
-    vs = torch.tensor(cfg.voxel_size, dtype=points.dtype, device=dev)
-    dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        lo = torch.tensor(cfg.grid_bounds[:3], dtype=points.dtype, device=dev)
+        vs = torch.tensor(cfg.voxel_size, dtype=points.dtype, device=dev)
+        dims = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
 
     cxyz = torch.floor((points[..., :3] - lo) / vs).to(torch.int32)
     pos = torch.arange(p, device=dev)

@@ -7,7 +7,8 @@ compiled with ``nvcc`` for ``sm_90a`` into ``build/lib<source>-<hash>.so``
 under this package at first use (the hash of the source and of every
 ``csrc/`` header it includes keeps a stale library from being loaded) and
 bound with ``ctypes``. Nothing is built when a module is imported;
-``build()`` compiles several sources at once, one ``nvcc`` process each. ``launch()`` calls a kernel's entry point and
+``build()`` compiles several sources at once, one ``nvcc`` process each,
+under the span ``v3d:build``. ``launch()`` calls a kernel's entry point and
 raises on a CUDA error; ``LAUNCHES`` counts the launches of each kernel,
 and of each route ``<name>.<route>`` of a kernel with several (``ROUTES``:
 one entry point that takes the route as an argument).
@@ -20,6 +21,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+from vision3d_tpu_torch.training.profiler import annotate
 
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
@@ -83,22 +86,23 @@ def build(names=KERNELS) -> dict:
     build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in dict.fromkeys(source_of(n) for n in names):
-        out = so_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
     logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(name)
-            continue
-        os.replace(tmp, out)
+    with annotate("build"):
+        for name in dict.fromkeys(source_of(n) for n in names):
+            out = so_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out)
+        for name, (proc, tmp, out) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(name)
+                continue
+            os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -16,6 +16,7 @@ from torch import nn
 from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.core.boxes import decode
 from vision3d_tpu_torch.core.nms import nms_rotated
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 class Detections(NamedTuple):
@@ -53,17 +54,18 @@ def decode_proposals(cls_map, reg_map, anchors, cfg: Config):
     Ties in score (empty BEV cells give identical logits) go to the lower
     anchor index, as ``jax.lax.top_k`` breaks them: a stable descending
     sort, sliced, since ``torch.topk`` promises no order among ties."""
-    b, n_cls = cls_map.shape[:2]
-    k = cfg.proposal.topk
-    scores_flat = torch.sigmoid(cls_map.reshape(b, n_cls, -1).float())
-    scores, idx = torch.sort(scores_flat, dim=-1, descending=True, stable=True)
-    scores, idx = scores[..., :k], idx[..., :k]
-    dof = cfg.box_dof
-    deltas = torch.gather(reg_map.reshape(b, n_cls, -1, dof).float(), 2,
-                          idx[..., None].expand(b, n_cls, k, dof))
-    anchors_flat = anchors.reshape(1, n_cls, -1, dof).expand(b, -1, -1, -1)
-    sel = torch.gather(anchors_flat, 2, idx[..., None].expand(b, n_cls, k, dof))
-    return decode(deltas, sel), scores
+    with annotate("decode"):
+        b, n_cls = cls_map.shape[:2]
+        k = cfg.proposal.topk
+        scores_flat = torch.sigmoid(cls_map.reshape(b, n_cls, -1).float())
+        scores, idx = torch.sort(scores_flat, dim=-1, descending=True, stable=True)
+        scores, idx = scores[..., :k], idx[..., :k]
+        dof = cfg.box_dof
+        deltas = torch.gather(reg_map.reshape(b, n_cls, -1, dof).float(), 2,
+                              idx[..., None].expand(b, n_cls, k, dof))
+        anchors_flat = anchors.reshape(1, n_cls, -1, dof).expand(b, -1, -1, -1)
+        sel = torch.gather(anchors_flat, 2, idx[..., None].expand(b, n_cls, k, dof))
+        return decode(deltas, sel), scores
 
 
 def multiclass_nms(boxes, scores, cfg: Config) -> Detections:
@@ -73,9 +75,10 @@ def multiclass_nms(boxes, scores, cfg: Config) -> Detections:
     flat_scores = scores.reshape(b, n_cls * k)
     class_idx = torch.arange(n_cls, dtype=torch.int32, device=boxes.device)
     class_idx = class_idx[None, :, None].expand(b, n_cls, k).reshape(b, n_cls * k)
-    thresh = torch.tensor([a.score_thresh for a in cfg.anchors[: cfg.num_classes]],
-                          dtype=scores.dtype, device=scores.device)
-    bev = flat_boxes[..., [0, 1, 3, 4, 6]]
+    with annotate("sync"):
+        thresh = torch.tensor([a.score_thresh for a in cfg.anchors[: cfg.num_classes]],
+                              dtype=scores.dtype, device=scores.device)
+        bev = flat_boxes[..., [0, 1, 3, 4, 6]]
     keep = nms_rotated(bev, flat_scores, group_idx=class_idx,
                        iou_threshold=cfg.proposal.nms_iou_threshold,
                        angle_mode=cfg.iou_angle_mode)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from vision3d_tpu_torch.config import Config
 from vision3d_tpu_torch.core.targets import Targets
 from vision3d_tpu_torch.parallel.mesh import global_sum
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def sigmoid_focal_loss(logits, targets, alpha: float = 0.25, gamma: float = 2.0):
@@ -51,7 +52,8 @@ def proposal_loss(cls_map, reg_map, targets: Targets, cfg: Config):
     # the yaw term BROADCAST against the 3-wide sum, so it counts three
     # times: total = sum(xyz) + sum(wlh) + 3*yaw/pi.
     scale = per.new_ones(per.shape[-1])
-    scale[6] = 3.0 / math.pi
+    with annotate("sync"):
+        scale[6] = 3.0 / math.pi
     reg_loss = ((per * scale).sum(-1) * m_reg).sum() / normalizer
 
     loss = cls_loss + cfg.train.lam * reg_loss

@@ -45,6 +45,7 @@ from vision3d_tpu_torch.models.refinement import (RefinementLayer, RoiGridPool,
 from vision3d_tpu_torch.models.second import _TRUNC_STD, Second, init_second
 from vision3d_tpu_torch.models.sparse_cnn import to_global
 from vision3d_tpu_torch.ops.fps import sample_keypoints
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def bev_bilinear_gather(bev, keypoints_xy, cfg: Config):
@@ -53,9 +54,10 @@ def bev_bilinear_gather(bev, keypoints_xy, cfg: Config):
     (B, K, 2) -> (B, K, C). Pixel coords (xy - offset) / (voxel * stride),
     clamped to [0, dim - 1]."""
     dev = bev.device
-    pix = torch.tensor(cfg.voxel_size[:2], dtype=torch.float32, device=dev) \
-        * cfg.strides[-1]
-    off = torch.tensor(cfg.grid_bounds[:2], dtype=torch.float32, device=dev)
+    with annotate("sync"):
+        pix = torch.tensor(cfg.voxel_size[:2], dtype=torch.float32, device=dev)
+        off = torch.tensor(cfg.grid_bounds[:2], dtype=torch.float32, device=dev)
+    pix = pix * cfg.strides[-1]
     b, ny, nx, _ = bev.shape
     fx = torch.clamp((keypoints_xy[..., 0] - off[0]) / pix[0], 0.0, nx - 1.0)
     fy = torch.clamp((keypoints_xy[..., 1] - off[1]) / pix[1], 0.0, ny - 1.0)
@@ -112,11 +114,12 @@ class PV_RCNN(Second):
         abstraction and the BEV gather without gradient."""
         cfg = self.cfg
         mask = point_mask(points, num_points)
-        with torch.no_grad():
+        with torch.no_grad(), annotate("fps"):
             keypoints, _ = sample_keypoints(points[..., :3], mask, cfg.num_keypoints)
         x, cls_map, reg_map, diag, scales = self.trunk(points, num_points,
                                                        need_scales=True)
-        with contextlib.nullcontext() if point_grad else torch.no_grad():
+        with (contextlib.nullcontext() if point_grad else torch.no_grad(),
+              annotate("point_branch")):
             sources = [(points[..., :3], points[..., 3:4], mask)]
             sources += [to_global(s, cfg, stride)
                         for s, stride in zip(scales, cfg.strides)]
@@ -154,9 +157,11 @@ class PV_RCNN(Second):
                              device=keypoints.device)
         seg_logits = self.keypoint_seg(point_features)
         fg = 1.0 - F.softmax(seg_logits, dim=-1)[..., -1:]
-        pooled = self.roi_grid_pool(proposals, keypoints, point_features * fg,
-                                    kp_mask, u=u, generator=generator)
-        box_deltas, conf_logits = self.refinement(pooled)
+        with annotate("grid_pool"):
+            pooled = self.roi_grid_pool(proposals, keypoints, point_features * fg,
+                                        kp_mask, u=u, generator=generator)
+        with annotate("refine"):
+            box_deltas, conf_logits = self.refinement(pooled)
         return dict(cls_map=cls_map, reg_map=reg_map, keypoints=keypoints,
                     point_features=point_features, proposals=proposals,
                     proposal_scores=scores.reshape(b, -1), box_deltas=box_deltas,
@@ -169,14 +174,16 @@ class PV_RCNN(Second):
         ``proposal.topk`` by that score, no NMS ((boxes, scores, indices)).
         Returns (that, diag)."""
         cfg = self.cfg
-        out, diag = self.two_stage(points, num_points, anchors, generator, u)
-        refined = apply_refinements(out["box_deltas"], out["proposals"])
-        conf = torch.sigmoid(out["conf_logits"]) * out["proposal_scores"]
-        b, k = refined.shape[0], cfg.proposal.topk
-        if rerank_only:
-            return refine_topk(refined, conf, k), diag
-        return multiclass_nms(refined.reshape(b, cfg.num_classes, k, cfg.box_dof),
-                              conf.reshape(b, cfg.num_classes, k), cfg), diag
+        with annotate("inference"):
+            out, diag = self.two_stage(points, num_points, anchors, generator, u)
+            with annotate("refine"):
+                refined = apply_refinements(out["box_deltas"], out["proposals"])
+                conf = torch.sigmoid(out["conf_logits"]) * out["proposal_scores"]
+            b, k = refined.shape[0], cfg.proposal.topk
+            if rerank_only:
+                return refine_topk(refined, conf, k), diag
+            return multiclass_nms(refined.reshape(b, cfg.num_classes, k, cfg.box_dof),
+                                  conf.reshape(b, cfg.num_classes, k), cfg), diag
 
 
 def init_pvrcnn(model: PV_RCNN, generator: torch.Generator):

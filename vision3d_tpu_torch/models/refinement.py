@@ -22,6 +22,7 @@ from vision3d_tpu_torch.core.iou import pairwise_rotated_iou
 from vision3d_tpu_torch.models.losses import smooth_l1
 from vision3d_tpu_torch.models.pointnet import SetAbstractionMSG
 from vision3d_tpu_torch.parallel.mesh import global_sum
+from vision3d_tpu_torch.training.profiler import annotate
 
 _BEV_COLS = [0, 1, 3, 4, 6]
 
@@ -52,7 +53,9 @@ def sample_gridpoints(boxes, m: int, u=None, generator=None):
     b, n, _ = boxes.shape
     if u is None:
         u = torch.rand((b, n, m, 3), generator=generator)
-    u = u.to(device=boxes.device, dtype=boxes.dtype) - 0.5
+    with annotate("sync"):
+        u = u.to(device=boxes.device, dtype=boxes.dtype)
+    u = u - 0.5
     local = boxes[:, :, None, 3:6] * u
     yaw = boxes[..., 6][:, :, None]
     c, s = torch.cos(yaw), torch.sin(yaw)
@@ -133,8 +136,9 @@ def refinement_loss(box_deltas, score_logits, proposals, proposal_valid,
     is NaN in every parameter."""
     g = gt_boxes.shape[1]
     with torch.no_grad():
-        iou = pairwise_rotated_iou(proposals[..., _BEV_COLS], gt_boxes[..., _BEV_COLS],
-                                   cfg.iou_angle_mode)               # (B, N, G)
+        with annotate("sync"):
+            props_bev, gt_bev = proposals[..., _BEV_COLS], gt_boxes[..., _BEV_COLS]
+        iou = pairwise_rotated_iou(props_bev, gt_bev, cfg.iou_angle_mode)  # (B, N, G)
         iou = torch.where(gt_mask[:, None, :], iou, 0.0)
         best = iou.amax(dim=2)
         gidx = torch.arange(g, device=iou.device)

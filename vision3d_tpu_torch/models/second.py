@@ -6,11 +6,13 @@ points -> voxelize + mean VFE -> the sparse representation
 z) -> the middle extractor ``cfg.cnn`` names -> BEV -> RPN -> proposal
 head; ``inference`` also decodes against the anchor grid and runs rotated
 NMS. The capacity diagnostics the JAX model sows are returned as a dict
-of 0-d int tensors next to the outputs; nothing here synchronises with
-the device: ``voxelizer_dropped``, and on the voxel backend
-``stage1_dropped``, ``stage2_dropped``, ``stage2_densify_dropped``, on
-the column backend ``stage0_columns_dropped`` and one
-``stage{i}_columns_dropped`` per sparse stage. In training mode
+of 0-d int tensors next to the outputs, which nothing here reads back
+(``inference``'s one read-back is NMS's, ``core/nms.py``; its copies of
+host constants to the card wait for the stream too, spans ``v3d:sync``):
+``voxelizer_dropped``, and on the voxel backend ``stage1_dropped``,
+``stage2_dropped``, ``stage2_densify_dropped``, on the column backend
+``stage0_columns_dropped`` and one ``stage{i}_columns_dropped`` per
+sparse stage. In training mode
 (``model.train()``, either backend) the stages before
 ``cfg.train_dense_from_stage`` run sparse, and the voxel backend's
 counters are ``voxelizer_dropped`` and one ``stage{i}_dropped`` per
@@ -29,6 +31,7 @@ from vision3d_tpu_torch.models.head import Detections, ProposalHead, head_infere
 from vision3d_tpu_torch.models.rpn import RPN
 from vision3d_tpu_torch.models.sparse_cnn import (CNN_FACTORY, from_voxels,
                                                   from_voxels_columns)
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def build_middle_input(cfg: Config, vox):
@@ -61,16 +64,20 @@ class Second(nn.Module):
         cls_map, reg_map, diag, and with ``need_scales`` the middle
         extractor's four scales, else None)."""
         cfg = self.cfg
-        vox = voxelize_batch(points, num_points, cfg)
-        diag = {"voxelizer_dropped":
-                (vox["num_voxels_total"] - vox["num_voxels"]).sum()}
-        st, col_dropped = build_middle_input(cfg, vox)
+        with annotate("voxelize"):
+            vox = voxelize_batch(points, num_points, cfg)
+            diag = {"voxelizer_dropped":
+                    (vox["num_voxels_total"] - vox["num_voxels"]).sum()}
+            st, col_dropped = build_middle_input(cfg, vox)
         if col_dropped is not None:
             diag["stage0_columns_dropped"] = col_dropped.sum()
-        bev, cnn_diag, *scales = self.cnn(st, need_scales=need_scales)
+        with annotate("middle"):
+            bev, cnn_diag, *scales = self.cnn(st, need_scales=need_scales)
         diag.update({k: v.sum() for k, v in cnn_diag.items()})
-        x = self.rpn(bev.permute(0, 3, 1, 2).float())
-        cls_map, reg_map = self.head(x)
+        with annotate("rpn"):
+            x = self.rpn(bev.permute(0, 3, 1, 2).float())
+        with annotate("head"):
+            cls_map, reg_map = self.head(x)
         return x, cls_map, reg_map, diag, (scales[0] if scales else None)
 
     def forward(self, points, num_points):
@@ -81,8 +88,9 @@ class Second(nn.Module):
     def inference(self, points, num_points, anchors):
         """Points in, NMS-filtered fixed-capacity boxes out.
         Returns (Detections, diagnostics)."""
-        cls_map, reg_map, diag = self(points, num_points)
-        return head_inference(cls_map, reg_map, anchors, self.cfg), diag
+        with annotate("inference"):
+            cls_map, reg_map, diag = self(points, num_points)
+            return head_inference(cls_map, reg_map, anchors, self.cfg), diag
 
 
 # std of a unit normal cut at +-2 (jax.nn.initializers.variance_scaling)

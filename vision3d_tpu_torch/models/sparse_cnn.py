@@ -45,6 +45,7 @@ from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops.column_conv import ColumnConvFn
 from vision3d_tpu_torch.ops.zwin_conv import zwin_conv
 from vision3d_tpu_torch.parallel.mesh import global_sum
+from vision3d_tpu_torch.training.profiler import annotate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -227,7 +228,8 @@ def dense_from_sparse_cols(st: SparseTensor, ncol_cap: int,
     dense = torch.zeros((total + 1, c), dtype=st.feats.dtype, device=dev)
     dense[flat] = st.feats.reshape(-1, c)
     occ = torch.zeros((total + 1,), dtype=torch.bool, device=dev)
-    occ[flat] = True
+    with annotate("sync"):
+        occ[flat] = True
     feats = dense[:total].reshape(b, d, h, w, c).permute(0, 4, 1, 2, 3)
     occ = occ[:total].reshape(b, d, h, w)
     return DenseTensor(feats=feats, occ=occ, grid=st.grid,
@@ -389,9 +391,10 @@ class SparseConvDown(nn.Module):
             of = torch.where(oz[:, None], F.relu(of), 0.0).to(self.cdt)
             okeys = omask = None
             if x.keys is not None:
-                okeys, omask, _ = sp.downsample_active_set(
-                    x.keys, x.mask, x.grid, self.kernel, self.stride, self.pad,
-                    self.out_cap)
+                with annotate("plan"):
+                    okeys, omask, _ = sp.downsample_active_set(
+                        x.keys, x.mask, x.grid, self.kernel, self.stride, self.pad,
+                        self.out_cap)
             return DenseTensor(feats=of, occ=oz, grid=out_grid, keys=okeys,
                                mask=omask)
         if len(plan) == 4:   # training plan with the transpose rulebook
@@ -412,20 +415,21 @@ class SparseConvDown(nn.Module):
         out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
         kyx, syx, pyx = self.kernel[1:], self.stride[1:], self.pad[1:]
         in_hw, out_hw = x.grid[1:], out_grid[1:]
-        if kyx == (1, 1) and syx == (1, 1):
-            # BEV-identity down conv (the (3, 1, 1) stage): same column set
-            ok, om = x.keys, x.mask
-            ndrop = torch.zeros((x.keys.shape[0],), dtype=torch.int32,
-                                device=x.keys.device)
-        else:
-            ok, om, ndrop = csp.downsample_bev_columns(
-                x.keys, x.mask, in_hw, kyx, syx, pyx, self.out_col_cap, out_hw)
-        rb = csp.build_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
-                                            out_keys=ok, out_mask=om, out_hw=out_hw)
-        # the transposed rulebook only serves the backward's dX
-        rbt = (csp.transpose_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
-                                                  ok, om, out_hw)
-               if torch.is_grad_enabled() and x.feats.requires_grad else None)
+        with annotate("plan"):
+            if kyx == (1, 1) and syx == (1, 1):
+                # BEV-identity down conv (the (3, 1, 1) stage): same column set
+                ok, om = x.keys, x.mask
+                ndrop = torch.zeros((x.keys.shape[0],), dtype=torch.int32,
+                                    device=x.keys.device)
+            else:
+                ok, om, ndrop = csp.downsample_bev_columns(
+                    x.keys, x.mask, in_hw, kyx, syx, pyx, self.out_col_cap, out_hw)
+            rb = csp.build_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
+                                                out_keys=ok, out_mask=om, out_hw=out_hw)
+            # the transposed rulebook only serves the backward's dX
+            rbt = (csp.transpose_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx,
+                                                      pyx, ok, om, out_hw)
+                   if torch.is_grad_enabled() and x.feats.requires_grad else None)
         of = ColumnConvFn.apply(x.feats, rb, rbt, self.weight, self.kernel, x.grid[0],
                                 x.c, self.stride[0], self.pad[0], self.cdt)
         oz = csp.column_occupancy_batched(x.zmask, rb, self.kernel, self.stride[0],
@@ -463,8 +467,9 @@ def to_global(st: SparseTensor, cfg: Config, stride: int):
     vs = torch.tensor(cfg.voxel_size, dtype=torch.float32) * stride
     off = torch.tensor(cfg.grid_bounds[:3], dtype=torch.float32)
     coords = st.coords.flip(-1).double()
-    xyz = (coords * vs.double().to(coords.device)
-           + off.double().to(coords.device)).float()
+    with annotate("sync"):
+        vs, off = vs.double().to(coords.device), off.double().to(coords.device)
+    xyz = (coords * vs + off).float()
     return torch.where(st.mask[..., None], xyz, 0.0), st.feats, st.mask
 
 
@@ -549,20 +554,22 @@ class SpMiddleFHD(nn.Module):
                 args = (x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
                         spec["pad"], spec["out_cap"])
                 subm = (3, 3, 3) if chans else None
-                if self.training:
-                    rb, rbd, rbt, ok, om, ndrop = sp.plan_stage_train_batched(
-                        *args, subm_kernel=subm)
-                    plan = (rbd, rbt, ok, om)
-                else:
-                    rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
-                        *args, subm_kernel=subm,
-                        subm_col_cap=cfg.stage_column_capacity(si),
-                        down_col_cap=cfg.stage_column_capacity(si + 1))
-                    plan = (rbd, ok, om)
+                with annotate("plan"):
+                    if self.training:
+                        rb, rbd, rbt, ok, om, ndrop = sp.plan_stage_train_batched(
+                            *args, subm_kernel=subm)
+                        plan = (rbd, rbt, ok, om)
+                    else:
+                        rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
+                            *args, subm_kernel=subm,
+                            subm_col_cap=cfg.stage_column_capacity(si),
+                            down_col_cap=cfg.stage_column_capacity(si + 1))
+                        plan = (rbd, ok, om)
                 diag[f"stage{si + 1}_dropped"] = ndrop
             elif chans and isinstance(x, ColumnTensor):
-                rb = csp.build_bev_rulebook_batched(x.keys, x.mask, x.grid[1:],
-                                                    (3, 3), (1, 1), (1, 1))
+                with annotate("plan"):
+                    rb = csp.build_bev_rulebook_batched(x.keys, x.mask, x.grid[1:],
+                                                        (3, 3), (1, 1), (1, 1))
             for _ in chans:
                 x = self.subm[li](x, rb)
                 li += 1

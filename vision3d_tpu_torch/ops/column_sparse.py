@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from vision3d_tpu_torch.ops import sparse as sp
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def bev_offsets(ky, kx):
@@ -92,8 +93,9 @@ def build_bev_rulebook_batched(col_keys, col_mask, hw, kernel_yx,
     ow = out_hw[1]
     oy = torch.where(out_mask, out_keys // ow, 0)
     ox = torch.where(out_mask, out_keys % ow, 0)
-    offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32,
-                        device=col_keys.device)
+    with annotate("sync"):
+        offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32,
+                            device=col_keys.device)
     ny = oy[..., None] * stride_yx[0] - pad_yx[0] + offs[:, 0]
     nx = ox[..., None] * stride_yx[1] - pad_yx[1] + offs[:, 1]
     ok = ((ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
@@ -119,7 +121,8 @@ def transpose_bev_rulebook_batched(col_keys, col_mask, hw, kernel_yx,
     dev = col_keys.device
     y = torch.where(col_mask, col_keys // w, 0)[..., None]
     x = torch.where(col_mask, col_keys % w, 0)[..., None]
-    offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32, device=dev)
     ty = y + pad_yx[0] - offs[:, 0]                                # (B, N, K2)
     tx = x + pad_yx[1] - offs[:, 1]
     oy = torch.div(ty, stride_yx[0], rounding_mode="floor")
@@ -145,7 +148,8 @@ def downsample_bev_columns(col_keys, col_mask, hw, kernel_yx, stride_yx,
     dev = col_keys.device
     y = torch.where(col_mask, col_keys // w, 0)[:, None]
     x = torch.where(col_mask, col_keys % w, 0)[:, None]
-    offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        offs = torch.tensor(bev_offsets(*kernel_yx), dtype=torch.int32, device=dev)
     ty = y + pad_yx[0] - offs[:, 0, None]                          # (B, K2, N)
     tx = x + pad_yx[1] - offs[:, 1, None]
     oy = torch.div(ty, stride_yx[0], rounding_mode="floor")

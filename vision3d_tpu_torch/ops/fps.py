@@ -23,6 +23,8 @@ the JAX package's on the CPU and the card's equal the CPU's.
 
 import torch
 
+from vision3d_tpu_torch.training.profiler import annotate
+
 
 def squared_distance(a, b):
     """|a - b|^2 over the last axis (3), float32, in XLA's CPU rounding."""
@@ -36,7 +38,8 @@ def furthest_point_sample(xyz, mask, k: int):
     """xyz (B, N, 3) float32, mask (B, N) bool -> indices (B, K) int64."""
     b = xyz.shape[0]
     bidx = torch.arange(b, device=xyz.device)
-    neg = torch.tensor(float("-inf"), device=xyz.device)
+    with annotate("sync"):
+        neg = torch.tensor(float("-inf"), device=xyz.device)
     dist = torch.where(mask, float("inf"), neg)
     cur = mask.to(torch.int32).argmax(dim=1)
     out = [cur]

@@ -18,6 +18,8 @@ kernel offset d in [0, k).
 import numpy as np
 import torch
 
+from vision3d_tpu_torch.training.profiler import annotate
+
 
 def sentinel_key(grid) -> int:
     d, h, w = grid
@@ -72,14 +74,16 @@ def downsample_active_set(keys, mask, in_grid, kernel, stride, pad, out_cap):
     cnt = [-(-k_ // s_) for k_, s_ in zip(kernel, stride)]
     joffs = np.stack(np.meshgrid(*[np.arange(c_) for c_ in cnt], indexing="ij"),
                      -1).reshape(-1, 3)
-    stride_t = torch.tensor(stride, dtype=torch.int32, device=dev)
-    pad_t = torch.tensor(pad, dtype=torch.int32, device=dev)
-    kern_t = torch.tensor(kernel, dtype=torch.int32, device=dev)
-    og_t = torch.tensor(og, dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        stride_t = torch.tensor(stride, dtype=torch.int32, device=dev)
+        pad_t = torch.tensor(pad, dtype=torch.int32, device=dev)
+        kern_t = torch.tensor(kernel, dtype=torch.int32, device=dev)
+        og_t = torch.tensor(og, dtype=torch.int32, device=dev)
+        joffs_t = torch.tensor(joffs, dtype=torch.int32, device=dev)
 
     cp = (coords + pad_t)[:, None]                         # (B, 1, N, 3)
     d0 = cp % stride_t
-    dd = d0 + torch.tensor(joffs, dtype=torch.int32, device=dev)[:, None] * stride_t
+    dd = d0 + joffs_t[:, None] * stride_t
     o = torch.div(cp - dd, stride_t, rounding_mode="floor")  # (B, J, N, 3)
     ok = ((dd < kern_t).all(-1) & (o >= 0).all(-1) & (o < og_t).all(-1)
           & mask[:, None, :])
@@ -127,9 +131,10 @@ def zwin_rulebook(keys, mask, grid, out_keys, out_mask, out_grid, kernel,
     oy = ok // (ow * od)
     ox = (ok // od) % ow
 
-    offs = torch.tensor(
-        np.stack(np.meshgrid(np.arange(ky), np.arange(kx), indexing="ij"), -1)
-        .reshape(-1, 2), dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        offs = torch.tensor(
+            np.stack(np.meshgrid(np.arange(ky), np.arange(kx), indexing="ij"), -1)
+            .reshape(-1, 2), dtype=torch.int32, device=dev)
     ny = oy[..., None] * stride[1] - pad[1] + offs[:, 0]     # (B, M, K2)
     nx = ox[..., None] * stride[2] - pad[2] + offs[:, 1]
     okbev = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w) & out_mask[..., None]
@@ -313,10 +318,12 @@ def rulebook(keys, mask, grid, out_keys, out_mask, out_grid, kernel,
     d, h, w = grid
     dev = keys.device
     coords = keys_to_coords(torch.where(out_mask, out_keys, 0), out_grid)
-    offs = torch.tensor(kernel_offsets(kernel), dtype=torch.int32, device=dev)
-    nbr = (coords[:, :, None, :] * torch.tensor(stride, dtype=torch.int32, device=dev)
-           - torch.tensor(pad, dtype=torch.int32, device=dev) + offs)   # (B, M, K, 3)
-    dims = torch.tensor(grid, dtype=torch.int32, device=dev)
+    with annotate("sync"):
+        offs = torch.tensor(kernel_offsets(kernel), dtype=torch.int32, device=dev)
+        stride_t = torch.tensor(stride, dtype=torch.int32, device=dev)
+        pad_t = torch.tensor(pad, dtype=torch.int32, device=dev)
+        dims = torch.tensor(grid, dtype=torch.int32, device=dev)
+    nbr = coords[:, :, None, :] * stride_t - pad_t + offs          # (B, M, K, 3)
     ok = ((nbr >= 0) & (nbr < dims)).all(-1) & out_mask[:, :, None]
     nkey = (nbr[..., 1] * w + nbr[..., 2]) * d + nbr[..., 0]
     sent = sentinel_key(grid)
@@ -335,12 +342,13 @@ def transpose_rulebook_batched(in_keys, in_mask, in_grid, out_keys, out_mask,
     m = out_keys.shape[1]
     dev = in_keys.device
     coords = keys_to_coords(torch.where(in_mask, in_keys, 0), in_grid)
-    offs = torch.tensor(kernel_offsets(kernel), dtype=torch.int32, device=dev)
-    stride_t = torch.tensor(stride, dtype=torch.int32, device=dev)
-    t = (coords[:, :, None, :] + torch.tensor(pad, dtype=torch.int32, device=dev)
-         - offs)                                              # (B, N, K, 3)
+    with annotate("sync"):
+        offs = torch.tensor(kernel_offsets(kernel), dtype=torch.int32, device=dev)
+        stride_t = torch.tensor(stride, dtype=torch.int32, device=dev)
+        pad_t = torch.tensor(pad, dtype=torch.int32, device=dev)
+        og = torch.tensor(out_grid, dtype=torch.int32, device=dev)
+    t = coords[:, :, None, :] + pad_t - offs                  # (B, N, K, 3)
     o = torch.div(t, stride_t, rounding_mode="floor")
-    og = torch.tensor(out_grid, dtype=torch.int32, device=dev)
     ok = ((t % stride_t == 0).all(-1) & (o >= 0).all(-1) & (o < og).all(-1)
           & in_mask[:, :, None])
     okey = (o[..., 1] * out_grid[2] + o[..., 2]) * out_grid[0] + o[..., 0]

@@ -1,24 +1,33 @@
-"""Profiling and tracing hooks (counterpart of
-``vision3d_tpu/training/profiler.py``).
+"""Tracing of the port: the program's spans and a trace writer
+(counterpart of ``vision3d_tpu/training/profiler.py``).
 
 Usage:
     with trace_if("/tmp/traces", enabled=args.profile):
         for batch in loader:
-            with annotate("train_step"):
-                state, losses = step_fn(state, batch)
+            state, losses = step_fn(state, batch)
 
-``trace_if`` records a ``torch.profiler`` trace (host ops, and the card's
-kernels where a card is visible) and writes it as a Chrome trace, which
-Perfetto and TensorBoard's profile plugin read. ``StageTimer`` gives coarse
-host wall timings that synchronise the device before a stage's clock stops.
+``annotate(name)`` is the port's one span: a ``torch.profiler``
+``record_function`` range ``v3d:<name>`` while a profiler records, so its
+events sit on the profiler's clock beside the card's kernels, and a shared
+no-op context otherwise, so an untraced run pays one boolean test a span.
+Spans nest by call: each batch's spans sit under ``v3d:inference`` and each
+training step's under ``v3d:train_step``. ``v3d:sync`` marks each place on
+the hot path that waits for the card: NMS's read-back, and every copy of a
+host constant to the card (a blocking copy from pageable memory
+synchronises the stream). ``trace_if`` records a
+``torch.profiler`` trace (host ops, and the card's kernels where a card is
+visible) and writes it as a Chrome trace, which Perfetto and TensorBoard's
+profile plugin read.
 """
 
 import contextlib
 import os
 import time
-from collections import defaultdict
 
 import torch
+
+SPAN_PREFIX = "v3d:"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -40,48 +49,8 @@ def trace_if(logdir: str, enabled: bool = True):
 
 
 def annotate(name: str):
-    """A named region that shows up on the trace's timeline."""
-    return torch.profiler.record_function(name)
-
-
-def _devices(value, found):
-    """The CUDA devices of the tensors in ``value`` (nested dicts, lists,
-    tuples)."""
-    if isinstance(value, torch.Tensor):
-        if value.is_cuda:
-            found.add(value.device)
-    elif isinstance(value, dict):
-        for v in value.values():
-            _devices(v, found)
-    elif isinstance(value, (list, tuple)):
-        for v in value:
-            _devices(v, found)
-    return found
-
-
-class StageTimer:
-    """Host wall timing with device synchronization per stage."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def time(self, name: str, sync_value=None):
-        """Time the block; with ``sync_value`` (tensors, or dicts / lists /
-        tuples of them) every card that holds one of them is synchronised
-        before the clock stops."""
-        t0 = time.perf_counter()
-        yield
-        for dev in _devices(sync_value, set()):
-            torch.cuda.synchronize(dev)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def summary(self) -> str:
-        rows = [
-            f"{k}: {self.totals[k] / max(self.counts[k], 1) * 1e3:.2f} ms avg"
-            f" over {self.counts[k]}"
-            for k in sorted(self.totals)
-        ]
-        return "\n".join(rows)
+    """The span ``v3d:<name>`` on the trace's timeline while a profiler
+    records; else a no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _OFF

@@ -7,7 +7,9 @@ with peak ``cfg.train.max_lr``, after global-norm gradient clipping at
 (no gradient), the training-mode forward (which updates the batch-norm
 running statistics), the loss, the backward pass and the optimizer update.
 Nothing in a step reads a value back from the device: the learning rate is
-a function of the host-side step count and the clip factor stays a tensor.
+a function of the host-side step count and the clip factor stays a tensor
+(the copies of host constants to the card, spans ``v3d:sync``, wait for
+the stream).
 
 The schedule and the clip are optax's, written out, because the JAX package
 is the reference: ``optax.cosine_onecycle_schedule`` is a piecewise cosine
@@ -54,6 +56,7 @@ from vision3d_tpu_torch.models.pvrcnn import PV_RCNN, init_pvrcnn
 from vision3d_tpu_torch.models.refinement import refinement_loss
 from vision3d_tpu_torch.models.second import Second, init_second
 from vision3d_tpu_torch.parallel import mesh
+from vision3d_tpu_torch.training.profiler import annotate
 
 
 def make_lr_schedule(cfg: Config, steps_per_epoch: int):
@@ -163,19 +166,25 @@ def _make_step(model, tx: Optimizer, cfg: Config, anchors, losses_of):
                                   device=next(model.parameters()).device)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], **draws):
-        model.train()
-        with torch.no_grad():
-            targets = assign_targets_batch(
-                batch["boxes"], batch["class_idx"], batch["gt_mask"],
-                batch["box_ignore"], anchors, cfg)
-        tx.zero_grad()
-        losses, diag = losses_of(state, batch, targets, anchors, **draws)
-        losses["loss"].backward()
-        mesh.all_reduce_gradients(tx.params)
-        tx.step(state.step)
-        state.step += 1
-        state.diagnostics = mesh.sum_over_ranks(diag)
-        return state, mesh.sum_over_ranks({k: v.detach() for k, v in losses.items()})
+        with annotate("train_step"):
+            model.train()
+            with torch.no_grad(), annotate("target_assign"):
+                targets = assign_targets_batch(
+                    batch["boxes"], batch["class_idx"], batch["gt_mask"],
+                    batch["box_ignore"], anchors, cfg)
+            with annotate("optimizer"):
+                tx.zero_grad()
+            with annotate("loss_forward"):
+                losses, diag = losses_of(state, batch, targets, anchors, **draws)
+            with annotate("backward"):
+                losses["loss"].backward()
+            with annotate("allreduce"):
+                mesh.all_reduce_gradients(tx.params)
+            with annotate("optimizer"):
+                tx.step(state.step)
+            state.step += 1
+            state.diagnostics = mesh.sum_over_ranks(diag)
+            return state, mesh.sum_over_ranks({k: v.detach() for k, v in losses.items()})
 
     return train_step
 
@@ -268,8 +277,10 @@ def make_pvrcnn_train_step(model: PV_RCNN, tx: Optimizer, cfg: Config, anchors=N
                        device=out["proposals"].device),
             batch["boxes"], batch["gt_mask"], cfg)
         losses.update(refine)
+        with annotate("sync"):
+            neg = neg.to(out["keypoints"].device)
         losses["seg_loss"] = keypoint_seg_loss(out["seg_logits"], out["keypoints"],
-                                               batch, neg.to(out["keypoints"].device), cfg)
+                                               batch, neg, cfg)
         losses["loss"] = losses["loss"] + refine["refine_loss"] + losses["seg_loss"]
         return losses, diag
 

@@ -19,6 +19,7 @@ import subprocess
 import numpy as np
 
 from vision3d_tpu_torch.kernels import BUILD, PACKAGE
+from vision3d_tpu_torch.training.profiler import annotate
 
 SOURCE = PACKAGE / "csrc" / "host" / "vision3d_host.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
@@ -33,8 +34,9 @@ def so_path():
 def _build(out):
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)], check=True,
-                   capture_output=True)
+    with annotate("build"):
+        subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)], check=True,
+                       capture_output=True)
     os.replace(tmp, out)
 
 
