@@ -86,24 +86,32 @@ Phases, each printing lines before the last:
      keypoints, set abstraction over 5 sources, BEV gather, keypoint
      weighting, RoI grid pool over 300 proposals x 16 grid points,
      refinement, NMS), each with 6 zwin_conv launches per forward (5 on
-     the tensor-core route), capacity counters 0, 2048 distinct keypoints
+     the tensor-core route) and the two-stage one with 12 ball_query
+     launches (BALL_QUERIES), capacity counters 0, 2048 distinct keypoints
      per frame, finite 512-wide point features, valid detections; the p50
      of 10 forwards after 3 warm-ups of each, the peak memory, and a
      per-stage split of the two-stage forward (host clock, synchronised
-     at each stage's end); (b) at small geometry in float32 with TF32
+     at each stage's end); then the ball_query kernel at the forward's 12
+     shapes (5 sources x 2 radii over the keypoints, the grid pool's 2
+     over the grid points): equal to its plain version on the same card
+     tensors, and again with one in-ball source masked out, which must
+     fail; kernel and plain CUDA-event medians, the bound, per source
+     (ball_query_ms); (b) at small geometry in float32 with TF32
      off, card against CPU on the same weights and the same CPU-drawn
      grid points: keypoint and ball-query indices (5 sources x 2 radii)
      equal, point features, proposals, refined boxes and scores within
      1e-4 of their scale, detections paired by the column-vs-voxel gate;
      (c) eval_cli --model pvrcnn2 on phase 7's 48 val frames from the
      seeded init in the yaml's float32 (6 zwin_conv per batch, all on the
-     FMA route), frames/s, no AP gate (no trained PV-RCNN weights exist);
+     FMA route, and 12 ball_query), frames/s, no AP gate (no trained
+     PV-RCNN weights exist);
   9. PV-RCNN training (``make_pvrcnn_train_step``), stage 1 alone
      ("pvrcnn": the proposal loss, the point branch run for its batch
      norms) and both stages ("pvrcnn2": + refinement and keypoint
      segmentation losses): (a) at phase 8a's full width, bf16, from a fresh
      seeded init on phase 5's batch: launches of a step (27 gather_gemm, 26
-     on the tensor-core route, 14 gather_rows, no zwin_conv), capacity
+     on the tensor-core route, 14 gather_rows, no zwin_conv; 10 ball_query
+     in stage 1 alone, 12 in both stages), capacity
      counters 0, finite losses, the p50 of 6 steps after 3 warm-ups, peak
      memory, every pnets_* running statistic moved, the stage-2
      parameters moved (pvrcnn2) or absent (pvrcnn), and a synchronised
@@ -174,9 +182,13 @@ Phases, each printing lines before the last:
      path's, every other kernel launched no time; capacity counters 0,
      finite outputs (the entry points raise on a non-finite checksum or
      loss), finite timings.
-The last line is {"ok": true, "device": {...}}; the one before it lists
-the kernels as JSON, and the one before that is the card's name and
-power limit from nvidia-smi.
+Every PV-RCNN forward or step on the card, in every phase, launches
+ball_query as BALL_QUERIES says (12 a two-stage forward or step, 10 a
+stage-1 step, none for the BEV branch alone or SECOND). The last line is
+{"ok": true, "device": {...}}; the one before it lists the kernels as
+JSON (ball_query with its launches per forward and its times per query),
+and the one before that is the card's name and power limit from
+nvidia-smi.
 """
 
 import contextlib
@@ -208,13 +220,13 @@ from vision3d_tpu_torch.models import pointnet as tpointnet
 from vision3d_tpu_torch.models import pvrcnn as tpvrcnn
 from vision3d_tpu_torch.models.pvrcnn import (STAGE2_MODULES, bev_bilinear_gather,
                                               create_pvrcnn, point_mask)
-from vision3d_tpu_torch.models.refinement import apply_refinements
+from vision3d_tpu_torch.models.refinement import apply_refinements, sample_gridpoints
 from vision3d_tpu_torch.models.rpn import BatchNorm2d
 from vision3d_tpu_torch.models.second import build_middle_input
 from vision3d_tpu_torch.models.sparse_cnn import (MaskedBatchNorm, SpMiddleFHD,
                                                   from_voxels, from_voxels_columns,
                                                   to_global)
-from vision3d_tpu_torch.ops.ball_query import ball_query
+from vision3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from vision3d_tpu_torch.ops.fps import sample_keypoints
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
@@ -259,6 +271,11 @@ F32_FLOP_PER_S = 67e12        # outside the tensor cores
 PV_TOL = 1e-4
 PV_REF_POINTS = 8000          # points per cloud of phases 8b and 9b (the CPU's time)
 PV_MODES = ("pvrcnn", "pvrcnn2")
+# ball_query launches of a PV-RCNN forward or training step: stage 1's five
+# sources x two radii ("pvrcnn"), and two more in the RoI grid pool
+# ("pvrcnn2"); SECOND and PV-RCNN's one-stage inference (the BEV branch)
+# launch none
+BALL_QUERIES = {"pvrcnn": 10, "pvrcnn2": 12}
 # PV-RCNN training, card against CPU at small geometry in float32 (phase
 # 9b): running statistics to 1e-5 of 1 + |value| (the CPU tests' bound
 # against JAX); the other gates are in pvrcnn_training_reference_phase
@@ -1438,11 +1455,14 @@ def check_counters(diag, where):
 
 def pvrcnn_phase(cfg, dev, want, state_dict=None, profile=True):
     """Phases 8a and 11a: PV-RCNN at full width on the card, every forward
-    launching as ``want`` says. Without ``state_dict`` the weights are
-    ``init_pvrcnn`` seed 0 with one batch's BN statistics, and the result
-    carries them ("state_dict", on the CPU). ``profile`` adds the
-    synchronised stage split and the ball queries' times."""
+    launching as ``want`` says (the trunk's kernels) and a two-stage one
+    also BALL_QUERIES["pvrcnn2"] ball queries. Without ``state_dict`` the
+    weights are ``init_pvrcnn`` seed 0 with one batch's BN statistics, and
+    the result carries them ("state_dict", on the CPU). ``profile`` adds the
+    synchronised stage split and the ball queries at the forward's shapes
+    (``ball_query_rows``)."""
     cfg = pvrcnn_cfg(cfg)
+    want2 = {**want, "ball_query": BALL_QUERIES["pvrcnn2"]}
     model, anchors = create_pvrcnn(cfg, device=dev, state_dict=state_dict)
     pts, num = kitti_like_batch(0, BATCH, POINTS)
     points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
@@ -1452,9 +1472,9 @@ def pvrcnn_phase(cfg, dev, want, state_dict=None, profile=True):
     with torch.no_grad():
         (det1, diag1), l1 = counted(lambda: model.inference(points, num_t, anchors), want)
         (det2, diag2), l2 = counted(lambda: model.inference_two_stage(
-            points, num_t, anchors, generator=gen()), want)
+            points, num_t, anchors, generator=gen()), want2)
         (ms, inter), l3 = counted(lambda: pvrcnn_stages(model, anchors, points, num_t,
-                                                        gen()), want)
+                                                        gen()), want2)
     check_counters(diag1, "pvrcnn inference")
     check_counters(diag2, "pvrcnn inference_two_stage")
     check_counters(inter["diag"], "pvrcnn stage split")
@@ -1504,17 +1524,77 @@ def pvrcnn_phase(cfg, dev, want, state_dict=None, profile=True):
     with torch.no_grad():
         split = [pvrcnn_stages(model, anchors, points, num_t, gen()) for _ in range(4)]
     split_ms = {k_: float(np.median([s[0][k_] for s in split[1:]])) for k_ in split[0][0]}
-    # the ball queries alone (both radii) of each source's set abstraction
     inter = split[-1][1]
     del split
-    bq_ms = {}
-    for i, ((xyz, _, msk), pnet) in enumerate(zip(inter["sources"], model.pnets)):
-        bq_ms[f"source{i}"] = cuda_ms(lambda: [
-            ball_query(xyz, msk, inter["keypoints"], r, s_)
-            for r, s_ in zip(pnet.radii, pnet.nsamples)], reps=5, warmup=1)
-        bq_ms[f"source{i}_n"] = int(xyz.shape[1])
-    return dict(out, ball_query_ms=bq_ms, stage_ms=split_ms,
+    with torch.no_grad():
+        rows = ball_query_phase(model, inter, gen())
+    return dict(out, ball_query_rows=rows, stage_ms=split_ms,
                 stage_sum_ms=float(sum(split_ms.values())))
+
+
+def ball_query_bound_ms(src_mask, idx, valid):
+    """The least time of one query: the larger of its pair tests at the
+    float32 peak (9 operations a pair: three differences, three products,
+    two sums, a compare) and its bytes (each source row's 12 + 1 and each
+    centre's 12 bytes read once, every group entry's 8 + 1 written once)
+    at the card's bandwidth. A centre needs the pairs with the masked-in
+    rows up to its nsample-th hit, or all of them when its ball never
+    fills (the group's last index repeats its first, unless nsample is 1).
+    Returns (ms, pairs, bound by)."""
+    b, n = src_mask.shape
+    _, m, s = idx.shape
+    seen = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=src_mask.device),
+                      src_mask.long().cumsum(1)], dim=1)       # masked-in rows before i
+    full = (idx[..., -1] > idx[..., 0]) if s > 1 else valid[..., 0]
+    upto = torch.where(full, idx[..., -1] + 1, n)
+    pairs = int(torch.gather(seen, 1, upto).sum())
+    ops_s = 9 * pairs / F32_FLOP_PER_S
+    bytes_s = (b * n * 13 + b * m * 12 + b * m * s * 9) / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), pairs, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def ball_query_phase(model, inter, generator):
+    """Phase 8a's ball queries at the forward's own shapes: the ten of the
+    set abstraction (each source's rows and mask, the keypoints, both
+    radii) and the RoI grid pool's two (the keypoints, the grid points
+    drawn from ``generator`` as the forward drew them). Each kernel result
+    must equal the plain version's on the same card tensors, and the
+    kernel run again with one in-ball source masked out (the first group
+    entry of the first non-empty ball) must not. Per query: CUDA-event
+    medians of kernel and plain, the bound, the pairs it needs."""
+    cfg = model.cfg
+    kp = inter["keypoints"]
+    b = kp.shape[0]
+    grid = sample_gridpoints(inter["proposals"], cfg.gridpool.num_gridpoints,
+                             generator=generator).reshape(b, -1, 3).contiguous()
+    queries = [(f"source{i}", xyz.contiguous(), msk.contiguous(), kp, pnet)
+               for i, ((xyz, _, msk), pnet) in enumerate(zip(inter["sources"], model.pnets))]
+    queries.append(("grid_pool", kp, torch.ones(kp.shape[:2], dtype=torch.bool,
+                                                device=kp.device), grid, model.roi_grid_pool.sa))
+    rows = []
+    for name, xyz, msk, ctr, sa in queries:
+        for r, s in zip(sa.radii, sa.nsamples):
+            got = ball_query(xyz, msk, ctr, r, s)
+            ref = ball_query_plain(xyz, msk, ctr, r, s)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"ball_query {name} r {r}: the kernel differs from the plain version")
+            nonempty = ref[1][..., 0].nonzero()
+            check(len(nonempty) > 0, f"ball_query {name} r {r}: every ball is empty")
+            frame, centre = (int(i) for i in nonempty[0])
+            broken_mask = msk.clone()
+            broken_mask[frame, ref[0][frame, centre, 0]] = False
+            broken = ball_query(xyz, broken_mask, ctr, r, s)
+            check(not (torch.equal(broken[0], ref[0]) and torch.equal(broken[1], ref[1])),
+                  f"ball_query {name} r {r}: a source dropped from a ball passed the check")
+            bound, pairs, by = ball_query_bound_ms(msk, *got)
+            rows.append(dict(query=f"{name} r {r}", B=b, N=int(xyz.shape[1]),
+                             active=int(msk.sum()), M=int(ctr.shape[1]), S=s,
+                             full_share=float((got[0][..., -1] > got[0][..., 0]).float().mean()),
+                             pairs=pairs, bound_ms=bound, bound_by=by,
+                             ms=cuda_ms(lambda: ball_query(xyz, msk, ctr, r, s)),
+                             plain_ms=cuda_ms(lambda: ball_query_plain(xyz, msk, ctr, r, s),
+                                              reps=3, warmup=1)))
+    return rows
 
 
 def pvrcnn_reference_phase(dev, backend="voxel"):
@@ -1538,11 +1618,13 @@ def pvrcnn_reference_phase(dev, backend="voxel"):
                                      torch.from_numpy(num).to(d),
                                      torch.Generator().manual_seed(0))
             inter["ball_query"] = [
-                ball_query(xyz, msk, inter["keypoints"], r, s)
+                ball_query(xyz.contiguous(), msk, inter["keypoints"], r, s)
                 for (xyz, _, msk), pair in zip(inter["sources"], zip(radii[::2], radii[1::2]))
                 for r, s in pair]
         kernel = "column_conv" if backend == "column" else "zwin_conv"
-        want = {} if d.type == "cpu" else {kernel: 6, f"{kernel}.fma": 6}
+        # the forward's ball queries and the ten above
+        want = {} if d.type == "cpu" else {kernel: 6, f"{kernel}.fma": 6,
+                                           "ball_query": BALL_QUERIES["pvrcnn2"] + 10}
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"pvrcnn reference on {d.type}: launches {launched}")
         runs.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
@@ -1584,8 +1666,8 @@ def pvrcnn_cli_phase(shapes):
         tmp = Path(tmp)
         val, data = synthetic_set(tmp, golden)
         batches = -(-len(val) // BATCH)
-        want = launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
-                           batches)
+        want = {**launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
+                              batches), "ball_query": BALL_QUERIES["pvrcnn2"] * batches}
         (table, timing), launches = counted(lambda: eval_cli.main(
             data + ["--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
         check(timing["frames"] == len(val) and (tmp / "ap.json").exists(),
@@ -1658,7 +1740,8 @@ def pvrcnn_training_phase(cfg, dev, runs, warmup=PV_TRAIN_WARMUP, timed=PV_TRAIN
         check(bool(stage2_0) == two, f"{name}: stage-2 parameters {sorted(stage2_0)[:3]}")
         gathers, dx = [], {}
         with checked_gathers(gathers), counted_dx(dx):
-            (state, first), launches = counted(lambda: step(state, batch), expected)
+            (state, first), launches = counted(
+                lambda: step(state, batch), {**expected, "ball_query": BALL_QUERIES[mode]})
         check(len(gathers) == expected["gather_rows"],
               f"{name}: {len(gathers)} gathers checked")
         check(dx["launches"] == {"column_conv": n_dx, "column_conv.mma": n_dx,
@@ -1818,7 +1901,8 @@ def pvrcnn_training_reference_phase(dev, backend="voxel", modes=PV_MODES):
                         max_gates(maxes, replay=bool(runs)) as max_differ, \
                         point_indices([]) as indices:
                     state, losses = step(state, _to_device(b, d))
-                want = {} if d.type == "cpu" else float32_launches(step_launches)
+                want = {} if d.type == "cpu" else {**float32_launches(step_launches),
+                                                   "ball_query": BALL_QUERIES[mode]}
                 launched = {k: n for k, n in zw.LAUNCHES.items() if n}
                 check(launched == want, f"{mode} reference on {d.type}: launches {launched}")
                 runs.append(dict(
@@ -1902,14 +1986,18 @@ def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
             recs, launches = counted(lambda: train_cli.main(
                 data + ["--model", mode, "--batch-size", str(BATCH), "--workers", "2",
                         "--epochs", "1", "--ckpt-dir", str(tmp / f"ck_{mode}"),
-                        "--metrics-jsonl", str(tmp / f"{mode}.jsonl")]), want_step)
+                        "--metrics-jsonl", str(tmp / f"{mode}.jsonl")]),
+                {**want_step, "ball_query": BALL_QUERIES[mode] * steps})
             check(len(recs) == 1 and recs[0]["steps"] == steps
                   and all(np.isfinite(recs[0]["losses"])), f"train_cli {mode}: {recs}")
             ckpt = recs[0]["checkpoint"]
             check(ckpt and Path(ckpt).is_file(), f"train_cli {mode}: no checkpoint")
+            # --model pvrcnn evaluates the BEV branch alone: no ball query
             (table, timing), elaunch = counted(lambda: eval_cli.main(
                 data + ["--model", mode, "--ckpt", ckpt,
-                        "--out-json", str(tmp / f"ap_{mode}.json")]), want_eval)
+                        "--out-json", str(tmp / f"ap_{mode}.json")]),
+                {**want_eval, "ball_query": BALL_QUERIES["pvrcnn2"] * batches
+                 if mode == "pvrcnn2" else 0})
             check(timing["frames"] == len(val), f"eval_cli {mode}: {timing['frames']} frames")
             check(all(np.isfinite(v) for row in table.values() for v in row.values()),
                   f"eval_cli {mode} --ckpt: {table}")
@@ -2200,6 +2288,9 @@ def train_forms_cli_phase(shapes, col_rows, names):
             extra, args, form, want_eval, batch = runs[name]
             steps = 16 // batch
             want = {k: v * steps for k, v in float32_launches(TRAIN_FORMS[form][1]).items()}
+            if "pvrcnn2" in extra:
+                want["ball_query"] = BALL_QUERIES["pvrcnn2"] * steps
+                want_eval = {**want_eval, "ball_query": BALL_QUERIES["pvrcnn2"] * batches}
             recs, launches = counted(lambda: train_cli.main(
                 args + extra + ["--batch-size", str(batch), "--workers", "2", "--epochs", "1",
                                 "--ckpt-dir", str(tmp / f"ck_{name}"),
@@ -2425,12 +2516,13 @@ def ddp_cli_phase():
 
 
 # phase 12: {label: (entry point module, argv, the path's launches per
-# forward or step: "zwin" / "column" inference, "train" all-sparse step)}
+# forward or step: "zwin" / "column" inference, "pvrcnn2" two-stage
+# inference, "train" all-sparse step)}
 BENCH_RUNS = {
     "bench second": ("bench", [], "zwin"),
     "bench second --backend column": ("bench", ["--backend", "column"], "column"),
     "bench pvrcnn2": ("bench", ["--model", "pvrcnn2", "--iters", "2", "--warmup", "2"],
-                      "zwin"),
+                      "pvrcnn2"),
     "bench_train": ("bench_train", [], "train"),
 }
 
@@ -2595,8 +2687,22 @@ def main():
           f"{pv['launches']} (one stage {pv['launches_one_stage']})", flush=True)
     print("pvrcnn two-stage split (ms, host clock, synchronised per stage): "
           + ", ".join(f"{k} {v:.3f}" for k, v in pv["stage_ms"].items())
-          + f"; sum {pv['stage_sum_ms']:.2f}; of which the ball queries alone (ms, "
-          f"CUDA events; _n: the source's capacity) {pv['ball_query_ms']}", flush=True)
+          + f"; sum {pv['stage_sum_ms']:.2f}", flush=True)
+    bq_rows = pv["ball_query_rows"]
+    for r in bq_rows:
+        print(f"ball_query {r['query']} (B {r['B']}, N {r['N']}, {r['active']} rows masked "
+              f"in, M {r['M']}, nsample {r['S']}): equal to the plain version, a dropped "
+              f"source caught; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['pairs']} pairs), full balls "
+              f"{r['full_share']:.3f}", flush=True)
+    bq_ms = {}
+    for r in bq_rows:
+        ms = bq_ms.setdefault(r["query"].split()[0], {"kernel": 0.0, "plain": 0.0})
+        ms["kernel"] += r["ms"]
+        ms["plain"] += r["plain_ms"]
+    print(f"ball_query_ms per source (both radii, CUDA events): {bq_ms}; per two-stage "
+          f"forward: kernel {sum(r['ms'] for r in bq_rows):.3f} ms, plain "
+          f"{sum(r['plain_ms'] for r in bq_rows):.3f} ms", flush=True)
     with full_float32():
         pvref = pvrcnn_reference_phase(dev)
     gc.collect()
@@ -2759,7 +2865,8 @@ def main():
 
     gc.collect()
     torch.cuda.empty_cache()
-    benches = bench_phase({"zwin": want_zwin, "column": want_col, "train": expected})
+    benches = bench_phase({"zwin": want_zwin, "column": want_col, "train": expected,
+                           "pvrcnn2": {**want_zwin, "ball_query": BALL_QUERIES["pvrcnn2"]}})
     for label, (_, per) in benches.items():
         print(f"{label}: launches per {'step' if 'train' in label else 'forward'} {per}",
               flush=True)
@@ -2934,6 +3041,29 @@ def main():
          "dx_shapes": brief(bw_rows, "launches_dx_column_df4",
                             ("route", "M", "D", "active_taps", "active_out_sites",
                              "bf16_fma_ms") + times)},
+        {"name": "ball_query", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/ball_query.cu",
+         # XLA code in the JAX package (vision3d_tpu/ops/ball_query.py)
+         "replaces": None,
+         "launches": pv["launches"]["ball_query"],
+         "launches_pvrcnn_column_per_forward": pvc["launches"]["ball_query"],
+         "launches_eval_cli_pvrcnn2_per_batch": pvcli["per_batch"]["ball_query"],
+         "launches_pvrcnn_train_per_step": {m: r["launches"]["ball_query"]
+                                            for m, r in pvt.items()},
+         "launches_train_cli_pvrcnn_per_step": {m: r["train_per_step"]["ball_query"]
+                                                for m, r in pvtcli.items()},
+         "launches_bench_pvrcnn2_per_forward":
+             benches["bench pvrcnn2"][1]["ball_query"],
+         "launches_bench_second_per_forward":
+             benches["bench second"][1].get("ball_query", 0),
+         "ms": sum(r["ms"] for r in bq_rows),
+         "plain_ms": sum(r["plain_ms"] for r in bq_rows),
+         "bound_ms": sum(r["bound_ms"] for r in bq_rows),
+         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in bq_rows)
+                      else "operations"),
+         # no PyTorch call takes the first nsample in-ball points by index
+         "library_ms": None,
+         "shapes": bq_rows},
     ] + [
         {"name": f"zwin_align_{v}", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
-column_conv, zwin_align_v1, zwin_align_v3) against their plain PyTorch
-versions, on the card, also inside the training autograd functions
+column_conv, zwin_align_v1, zwin_align_v3, ball_query) against their plain
+PyTorch versions, on the card, also inside the training autograd functions
 (SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), the column scales'
 conversions' backward, PV-RCNN's inference and training on both backends
 on the card against the CPU, and two ranks on one card against one
@@ -810,9 +810,11 @@ def test_pvrcnn_card_matches_cpu(cuda_device):
     """PV-RCNN two-stage inference at small geometry, float32 with TF32 off,
     card against CPU on one set of weights and CPU-drawn grid points
     (``chip_smoke.py`` phase 8b, which raises on any difference): keypoint
-    and ball-query indices equal, point features, proposals, refined boxes
-    and scores within 1e-4 of their scale, detections paired, 6 zwin_conv
-    launches on the card, all on the FMA route."""
+    and ball-query indices equal (the card's from the ball_query kernel),
+    point features, proposals, refined boxes and scores within 1e-4 of
+    their scale, detections paired, 6 zwin_conv launches on the card, all
+    on the FMA route, and 22 ball_query (the forward's 12, the ten checked
+    apart)."""
     import sys
     from pathlib import Path
 
@@ -832,7 +834,8 @@ def test_pvrcnn_training_card_matches_cpu(cuda_device):
     and ball-query indices equal, losses to 1e-5 relative, gradients to
     1e-4 of their max on the card's ReLU gates, running statistics and
     parameters after the step within phase 9b's bounds, 27 gather_gemm (all
-    on the FMA route) and 14 gather_rows launches on the card."""
+    on the FMA route), 14 gather_rows and 10 / 12 ball_query launches on
+    the card."""
     import sys
     from pathlib import Path
 
@@ -926,3 +929,178 @@ def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device):
         out = chip_smoke.ddp_check(chip_smoke.small_geometry_cfg(), "cuda", 2, "gloo",
                                    batch_size=4, points=chip_smoke.PV_REF_POINTS)
     assert set(out) == set(chip_smoke.DDP_FORMS)
+
+
+def _bq_module():
+    import importlib
+
+    return importlib.import_module("vision3d_tpu_torch.ops.ball_query")
+
+
+def _bq_equal(src, mask, ctr, radius, nsample):
+    """The kernel's indices and valid flags against the plain version's on
+    the same card tensors, bit for bit; one launch counted."""
+    bq = _bq_module()
+    before = bq.LAUNCHES["ball_query"]
+    idx, valid = bq.ball_query(src, mask, ctr, radius, nsample)
+    torch.cuda.synchronize()
+    assert bq.LAUNCHES["ball_query"] == before + 1
+    ref_idx, ref_valid = bq.ball_query_plain(src, mask, ctr, radius, nsample)
+    assert idx.dtype == torch.int64 and valid.dtype == torch.bool
+    assert torch.equal(idx, ref_idx) and torch.equal(valid, ref_valid)
+    return ref_idx, ref_valid
+
+
+# the set abstraction's sources on the main path: rows of each source (batch
+# 8 of 18,000-point frames), its two radii (nsample 16 and 32), 2,048
+# keypoints a frame
+BQ_SOURCES = {"points": (18000, (0.4, 0.8)), "scale1": (20000, (0.4, 0.8)),
+              "scale2": (60000, (0.8, 1.2)), "scale3": (64000, (1.2, 2.4)),
+              "scale4": (38000, (2.4, 4.8))}
+
+
+@pytest.mark.parametrize("source", list(BQ_SOURCES))
+def test_ball_query_kernel_matches_plain_main_shapes(source, cuda_device):
+    """Seeded KITTI-like clouds at the main path's shapes, B 8, M 2,048,
+    each row masked out with p = 0.1 (not a prefix), the centres drawn from
+    each frame's rows: both radii, indices and valid bit-equal."""
+    from vision3d_tpu_torch.synthetic import kitti_like_batch
+
+    n, radii = BQ_SOURCES[source]
+    rng = np.random.default_rng(n)
+    pts, _ = kitti_like_batch(n % 97, 8, n)
+    src = np.ascontiguousarray(pts[..., :3])
+    mask = rng.uniform(size=(8, n)) >= 0.1
+    ctr = np.stack([src[i, rng.choice(n, 2048, replace=False)] for i in range(8)])
+    t = [torch.from_numpy(a).to(cuda_device) for a in (src, mask, ctr)]
+    for radius, nsample in zip(radii, (16, 32)):
+        _, valid = _bq_equal(*t, radius, nsample)
+        assert bool(valid[..., 0].any())
+
+
+def _boundary_case(dev, seed, b=3, m=70, radius=0.8, ring=40):
+    """Centres with ``ring`` rows each at radius * (1 + k 2^-24), k in
+    [-ring/2, ring/2), in random directions (so squared distances land on
+    r2 and on each of its float32 neighbours), shuffled among 3001 random
+    rows (N = 5801: no multiple of a tile); 8 centres far from every row;
+    rows masked out with p = 0.2; frame 2 wholly masked out."""
+    rng = np.random.default_rng(seed)
+    ctr = rng.uniform(-5, 5, (b, m, 3)).astype(np.float32)
+    u = rng.normal(size=(b, m, ring, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    k = np.arange(-ring // 2, ring // 2)[None, None, :, None]
+    rows = (ctr[:, :, None] + u * radius * (1 + k * 2.0 ** -24)).astype(np.float32)
+    src = np.concatenate([rows.reshape(b, -1, 3),
+                          rng.uniform(-6, 6, (b, 3001, 3)).astype(np.float32)], axis=1)
+    src = np.ascontiguousarray(src[:, rng.permutation(src.shape[1])])
+    ctr = np.concatenate([ctr, rng.uniform(40, 50, (b, 8, 3)).astype(np.float32)], axis=1)
+    mask = rng.uniform(size=src.shape[:2]) >= 0.2
+    mask[2] = False
+    return [torch.from_numpy(a).to(dev) for a in (src, mask, ctr)]
+
+
+def test_ball_query_kernel_at_the_radius(cuda_device):
+    """Rows at exactly r2 and one float32 ulp either side of it (in the
+    plain version's rounding), masked-out rows inside balls, groups below,
+    at and above nsample, empty balls (far centres, a wholly masked frame),
+    M = 78 and N = 5801 off every block and tile size: bit-equal."""
+    from vision3d_tpu_torch.ops.fps import squared_distance
+
+    radius = 0.8
+    src, mask, ctr = _boundary_case(cuda_device, 11, radius=radius)
+    d = squared_distance(ctr[:, :, None], src[:, None])
+    r2 = torch.tensor(float(np.float32(radius) * np.float32(radius)), device=cuda_device)
+    for near in (r2, torch.nextafter(r2, r2 - 1), torch.nextafter(r2, r2 + 1)):
+        assert int((d == near).sum()) > 0
+    in_ball = d < r2
+    assert bool((in_ball & ~mask[:, None]).any())
+    count = (in_ball & mask[:, None]).sum(-1)[:2, :70]
+    for nsample in (1, 5, 20, 32, 40):
+        _, valid = _bq_equal(src, mask, ctr, radius, nsample)
+        assert not bool(valid[2].any()) and not bool(valid[:, 70:].any())
+    assert bool((count < 20).any() and (count == 20).any() and (count > 20).any())
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (1, 255, 257), (2, 257, 33), (5, 1000, 9),
+                                   (1, 300, 2048)])
+def test_ball_query_kernel_any_size(b, n, m, cuda_device):
+    """Sizes off the tile (32 x warps a block) and the block, B = 1, and a
+    grid small enough for two warps a block: bit-equal."""
+    rng = np.random.default_rng(b * 1000 + n + m)
+    src = rng.uniform(-2, 2, (b, n, 3)).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) < 0.7
+    ctr = rng.uniform(-2, 2, (b, m, 3)).astype(np.float32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (src, mask, ctr)]
+    for nsample in (4, 16):
+        _bq_equal(*t, 1.0, nsample)
+
+
+def test_ball_query_kernel_empty_source(cuda_device):
+    """No source rows at all: every ball empty, indices 0, valid False."""
+    bq = _bq_module()
+    idx, valid = bq.ball_query(torch.zeros((2, 0, 3), device=cuda_device),
+                               torch.zeros((2, 0), dtype=torch.bool, device=cuda_device),
+                               torch.ones((2, 5, 3), device=cuda_device), 1.0, 4)
+    assert tuple(idx.shape) == (2, 5, 4) and int(idx.abs().sum()) == 0
+    assert not bool(valid.any())
+
+
+def test_ball_query_kernel_rejects_bad_input(cuda_device):
+    bq = _bq_module()
+    src, mask, ctr = _boundary_case(cuda_device, 12)
+    before = bq.LAUNCHES["ball_query"]
+    with pytest.raises(TypeError):
+        bq.ball_query(src.double(), mask, ctr, 0.8, 16)
+    with pytest.raises(TypeError):
+        bq.ball_query(src, mask, ctr.half(), 0.8, 16)
+    with pytest.raises(TypeError):
+        bq.ball_query(src, mask.to(torch.uint8), ctr, 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(src, mask.cpu(), ctr, 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(src, mask, ctr.cpu(), 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(torch.stack([src, src], -1)[..., 0], mask, ctr, 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(src, torch.stack([mask, mask], -1)[..., 0], ctr, 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(src, mask, ctr[:, :, :2], 0.8, 16)
+    with pytest.raises(ValueError):
+        bq.ball_query(src, mask, ctr, 0.8, 0)
+    assert bq.LAUNCHES["ball_query"] == before
+
+
+def test_ball_query_launches_per_forward(cuda_device):
+    """12 ball_query launches a PV-RCNN two-stage forward (five sources x
+    two radii, the grid pool's two), none for its BEV branch alone or for
+    SECOND, at small geometry on the card."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from vision3d_tpu_torch import kernels
+    from vision3d_tpu_torch.models.pvrcnn import create_pvrcnn
+    from vision3d_tpu_torch.models.second import create_second
+    from vision3d_tpu_torch.synthetic import kitti_like_batch
+
+    cfg = chip_smoke.pvrcnn_cfg(chip_smoke.small_geometry_cfg())
+    pts, num = chip_smoke.crop_to_grid(cfg, kitti_like_batch(1, 2, 60000)[0])
+    pts, num = pts[:, :chip_smoke.PV_REF_POINTS], np.minimum(num, chip_smoke.PV_REF_POINTS)
+    points, num_t = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(num).to(cuda_device)
+    model, anchors = create_pvrcnn(cfg, device=cuda_device)
+    second, _ = create_second(cfg, device=cuda_device)
+    runs = {"pvrcnn2": lambda: model.inference_two_stage(
+                points, num_t, anchors, generator=torch.Generator().manual_seed(0)),
+            "pvrcnn_bev": lambda: model.inference(points, num_t, anchors),
+            "second": lambda: second.inference(points, num_t, anchors)}
+    launched = {}
+    with torch.no_grad():
+        for name, fn in runs.items():
+            kernels.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            launched[name] = kernels.LAUNCHES["ball_query"]
+    assert launched == {"pvrcnn2": chip_smoke.BALL_QUERIES["pvrcnn2"], "pvrcnn_bev": 0,
+                        "second": 0}
+    assert chip_smoke.BALL_QUERIES["pvrcnn2"] == 12

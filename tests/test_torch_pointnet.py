@@ -111,6 +111,33 @@ def test_ball_query_equal_jax(radius, nsample):
     assert counts > 0
 
 
+def test_ball_query_cpu_is_the_plain_version_and_launches_nothing():
+    """On CPU tensors ``ball_query`` runs ``ball_query_plain`` (the CUDA
+    kernel is held bit-equal to it on the card, tests/test_torch_cuda.py),
+    launches no kernel, and takes non-contiguous inputs."""
+    from vision3d_tpu_torch import kernels
+    from vision3d_tpu_torch.ops.ball_query import ball_query_plain
+
+    src, mask, ctr = (torch.from_numpy(a) for a in _ball_case(5))
+    wide = torch.stack([src, src], dim=-1)[..., 0]            # not contiguous
+    before = kernels.LAUNCHES["ball_query"]
+    for r, s in ((0.8, 16), (2.4, 32)):
+        got = ball_query(wide, mask, ctr, r, s)
+        want = ball_query_plain(src, mask, ctr, r, s)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert kernels.LAUNCHES["ball_query"] == before
+
+
+def test_ball_query_refuses_other_devices():
+    """A tensor on neither the CPU nor a CUDA card is refused before any
+    launch; no stand-in runs."""
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ball_query(torch.empty((1, 4, 3), device=meta), torch.empty((1, 4), dtype=torch.bool,
+                                                                  device=meta),
+                   torch.empty((1, 2, 3), device=meta), 1.0, 4)
+
+
 def test_group_features_equal_jax():
     """A gather and one float32 subtraction: equal to the bit."""
     src, mask, ctr = _ball_case(3)

@@ -55,9 +55,11 @@ class SetAbstractionMSG(nn.Module):
         """src_xyz (B, N, 3), src_feats (B, N, C) or None, src_mask (B, N),
         centers (B, M, 3) -> (B, M, sum of the output widths)."""
         outs = []
+        with torch.no_grad():       # the card's ball query takes contiguous inputs
+            query = (src_xyz.contiguous(), src_mask.contiguous(), centers.contiguous())
         for r, s, mlp in zip(self.radii, self.nsamples, self.mlps):
             with torch.no_grad():
-                idx, valid = ball_query(src_xyz, src_mask, centers, r, s)
+                idx, valid = ball_query(*query, r, s)
             g = group_features(src_xyz, src_feats, idx, valid, centers)
             h = mlp(g, valid)
             pooled = torch.where(valid[..., None], h, float("-inf")).amax(dim=2)
