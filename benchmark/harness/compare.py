@@ -1,5 +1,7 @@
-"""The numbers that decide ``correct``: the program's outputs of the timed
-path against the plain reference's, on the same weights and inputs.
+"""The generic numbers that decide ``correct``: the program's outputs of
+the timed path against the plain reference's, on the same weights and
+inputs. A model file's ``judge`` (inference) or ``train_numbers``
+(training) computes its cell's numbers from these.
 
 ``*_gap``: the largest absolute difference of a map or of features over
 the reference's standard deviation of that tensor. ``choice_gap``: the
@@ -17,7 +19,6 @@ import numpy as np
 import torch
 
 from harness import reference as ref
-from harness.weights import no_tf32
 
 
 def rel_gap(prog, want):
@@ -61,58 +62,6 @@ def nms_mismatch(boxes, scores, valid, cfg):
                         cfg["iou_angle_mode"])
     keep &= scores > cfg["anchors"][0]["score_thresh"]
     return int((keep != valid).sum())
-
-
-@torch.no_grad()
-def judge_second(cfg, prog, batch, sd, anchors):
-    """Numbers of one SECOND batch. ``prog``: cls, reg (the head's maps)
-    and det (boxes, scores, class_idx, valid)."""
-    with no_tf32():
-        _, cls_r, reg_r, _ = ref.second_maps(ref.Ctx("eval"), sd, cfg, batch["points"],
-                                            batch["num_points"])
-    k = cfg["proposal"]["topk"]
-    s_p, idx = program_choice(prog["cls"], k)
-    boxes, scores, _, valid = prog["det"]
-    return dict(cls_gap=rel_gap(prog["cls"], cls_r), reg_gap=rel_gap(prog["reg"], reg_r),
-                choice_gap=choice_gap(cls_r, idx, k),
-                decode_mismatch=(mismatches(boxes, decoded_at(prog["reg"], anchors, idx))
-                                 + mismatches(scores, s_p)),
-                nms_mismatch=nms_mismatch(boxes, scores, valid, cfg),
-                boxes_over_thresh=int((scores > cfg["anchors"][0]["score_thresh"]).sum()))
-
-
-@torch.no_grad()
-def judge_pvrcnn(cfg, prog, batch, sd, anchors, u):
-    """Numbers of one PV-RCNN two-stage batch. ``prog`` adds keypoints,
-    point features, the proposals that entered RoI grid pooling and the
-    refinement's outputs (box deltas, confidence logits). The reference
-    pools the program's proposals on its own keypoints and features; the
-    proposals themselves are judged by ``choice_gap`` and
-    ``decode_mismatch``."""
-    with no_tf32():
-        ctx = ref.Ctx("eval")
-        x, cls_r, reg_r, scales = ref.second_maps(ctx, sd, cfg, batch["points"],
-                                                 batch["num_points"], need_scales=True)
-        kp_r, pf_r, _ = ref.point_branch(ctx, sd, cfg, batch["points"], batch["num_points"],
-                                         x, scales)
-        proposals = prog["proposals"].float()
-        _, logit_r, deltas_r = ref.stage2(ctx, sd, cfg, proposals, kp_r, pf_r, u)
-    k = cfg["proposal"]["topk"]
-    s_p, idx = program_choice(prog["cls"], k)
-    deltas_p, logit_p = prog["refine"]
-    boxes, scores, _, valid = prog["det"]
-    decode = (mismatches(proposals, decoded_at(prog["reg"], anchors, idx))
-              + mismatches(boxes, ref.decode(deltas_p.float(), proposals))
-              + mismatches(scores, torch.sigmoid(logit_p.float()) * s_p))
-    return dict(cls_gap=rel_gap(prog["cls"], cls_r), reg_gap=rel_gap(prog["reg"], reg_r),
-                keypoint_mismatch=int((prog["keypoints"] != kp_r).any(-1).sum()),
-                point_feat_gap=rel_gap(prog["point_features"], pf_r),
-                choice_gap=choice_gap(cls_r, idx, k),
-                refine_gap=max(rel_gap(deltas_p, deltas_r), rel_gap(logit_p, logit_r)),
-                refine_rms=max(rms_gap(deltas_p, deltas_r), rms_gap(logit_p, logit_r)),
-                decode_mismatch=decode,
-                nms_mismatch=nms_mismatch(boxes, scores, valid, cfg),
-                boxes_over_thresh=int((scores > cfg["anchors"][0]["score_thresh"]).sum()))
 
 
 def leaf_gaps(prog: dict, want: dict, counted) -> dict:

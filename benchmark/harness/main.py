@@ -4,47 +4,57 @@ against the plain reference, and one result line.
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell names its configuration (``configs/<config>.json``: the port's
-``Config`` fields plus the benchmark's ``bench`` block) and its traffic
+``Config`` fields plus the benchmark's ``bench`` block, whose ``model``
+names a model file ``models/<model>.py``) and its traffic
 (``traffic/<traffic>.json``); each per-layer metric is a reader
 ``metrics/<name>.py``. Everything is found by the names in
 ``BENCHMARK.json``; an unknown name fails.
+
+A training cell may ask for several cards: one rank process a card, each
+on its share of the global batch (``harness/traffic.py``), through the
+port's several-rank training step. The process that prints the result
+starts the ranks and prints what rank 0 gathered.
 
 Options for setting limits, which a measured run never takes:
 ``--control`` puts the reference, in float8, in the program's place;
 ``--fault`` plants a fault in the timed path; ``--readings N`` runs N
 seeds from ``--seed`` in one process and prints each one's numbers;
-``--device cpu`` rehearses the whole run at a small geometry and prints
-no device metric.
+``--device cpu`` rehearses the whole run at a small geometry (a cell on
+several cards on two gloo ranks) and prints no device metric.
 """
 
 import argparse
-import importlib.util
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from datetime import timedelta
 from pathlib import Path
 
-import numpy as np
 import torch
+import torch.distributed as dist
 
-from harness import compare, reference as ref, trace, traffic, weights
+from harness import files, reference as ref, trace, traffic, weights
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "vision3d_tpu")
 NOT_PROGRAM = ("bench", "assumed", "source")
-# the CPU rehearsal's geometry and load (the port's bench --quick)
+# the CPU rehearsal's geometry and load (the port's bench --quick), and the
+# most gloo ranks it starts for a cell on several cards
 QUICK = dict(max_voxels=4096, voxel_size=[0.1, 0.1, 0.1],
              grid_bounds=[0.0, -19.2, -3.0, 38.4, 19.2, 1.0])
 QUICK_MIX = dict(batch=2, points=3000, pool=3)
-FAULTS = ("none", "alter", "half_batch", "unchanged", "dw_scale")
-# the leaf whose gradient the ``dw_scale`` fault doubles: a stage-2 sparse
-# conv, whose dW the program regathers with kernel B4
-DW_FAULT_LEAF = "cnn.subm.4.weight"
+QUICK_CHIPS = 2
+FAULTS = ("none", "alter", "half_batch", "unchanged", "dw_scale", "skip_allreduce")
+# a collective that waits this long for a rank ends the run instead of
+# hanging it
+RANK_TIMEOUT = timedelta(seconds=300)
 
 
 def forbidden_modules(modules=None):
@@ -60,20 +70,16 @@ def load_json(path: Path):
 
 
 class Cell:
-    """A workload of ``BENCHMARK.json`` with its configuration, traffic
-    and metrics."""
+    """A workload of ``BENCHMARK.json`` with its configuration, traffic,
+    model file and metrics. ``chips`` is the number of ranks a run starts
+    (on the CPU at most ``QUICK_CHIPS``)."""
 
-    def __init__(self, name, spec=None, quick=False):
+    def __init__(self, name, spec=None, quick=False, models=files.MODELS):
         spec = spec or load_json(ROOT / "BENCHMARK.json")
         cells = {w["name"]: w for w in spec["workloads"]}
         if name not in cells:
             raise KeyError(f"unknown workload {name!r}; BENCHMARK.json has {sorted(cells)}")
         self.name, self.entry = name, cells[name]
-        if self.entry["chips"] != 1:
-            # one process drives one card: a cell on several cards needs a
-            # launcher of ranks and a reference over the global batch
-            raise KeyError(f"workload {name!r} asks for {self.entry['chips']} chips; "
-                           "the harness runs cells on one chip only")
         configs = {c["name"]: c for c in spec["configs"]}
         if self.entry["config"] not in configs:
             raise KeyError(f"workload {name!r} names unknown config {self.entry['config']!r}")
@@ -83,9 +89,20 @@ class Cell:
             raise KeyError(f"workload {name!r} names traffic {self.entry['traffic']!r}, "
                            f"but {path.relative_to(ROOT)} does not exist")
         self.mix = load_json(path)
+        mode = self.mix["mode"]
+        if mode not in ("infer", "train"):
+            raise KeyError(f"unknown traffic mode {mode!r}")
+        self.chips = self.entry["chips"]
+        if self.chips != 1 and mode != "train":
+            raise KeyError(f"workload {name!r} asks for {self.chips} chips; only a training "
+                           "cell may run on several (one rank a card, a share of the batch each)")
         if quick:
             self.cfg = {**self.cfg, **QUICK}
             self.mix = {**self.mix, **QUICK_MIX}
+            self.chips = min(self.chips, QUICK_CHIPS)
+        self.model = files.model(self.cfg["bench"]["model"], mode, models)
+        # the configuration's limits of the mode, and any the traffic adds
+        self.limits = {**self.cfg["bench"]["limits"][mode], **self.mix.get("limits", {})}
         self.end_to_end = [m for m in spec["end_to_end"] if name in m.get("workloads", [name])]
         moves = {m["name"] for m in self.end_to_end}
         self.per_layer = [m for m in spec["per_layer"]
@@ -97,17 +114,42 @@ class Cell:
         return Config().merge({k: v for k, v in self.cfg.items() if k not in NOT_PROGRAM})
 
 
-def load_reader(name):
-    path = BENCH / "metrics" / f"{name}.py"
-    if not path.is_file():
-        raise KeyError(f"per-layer metric {name!r} has no reader {path.relative_to(ROOT)}")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    for attr in ("SUBMODULES", "KERNELS", "read"):
-        if not hasattr(mod, attr):
-            raise AttributeError(f"metric reader {path.name} lacks {attr}")
-    return mod
+load_reader = files.reader
+
+
+class Ranks:
+    """This process's place among a cell's rank processes: ``rank``,
+    ``world``, and ``host``, a gloo group for the harness's own exchanges
+    of host values (the end of the window, each rank's readings), apart
+    from the program's collectives."""
+
+    def __init__(self, rank, world, host):
+        self.rank, self.world, self.host = rank, world, host
+        self.posted = None
+
+    def gather(self, obj):
+        out = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.host)
+        return out
+
+    def rank0_said(self, flag: bool) -> bool:
+        """Posts rank 0's ``flag`` without waiting for it, and returns the
+        flag it posted at the last call (False at the first): every rank
+        learns rank 0's word one step late, by which time it has long
+        arrived, so no step waits on another rank for it."""
+        word = torch.tensor([int(flag)], dtype=torch.int32)
+        posted, self.posted = self.posted, (dist.broadcast(word, 0, group=self.host,
+                                                           async_op=True), word)
+        if posted is None:
+            return False
+        posted[0].wait()
+        return bool(posted[1].item())
+
+    def settle(self):
+        """Waits for the word still in flight once the window has ended."""
+        if self.posted is not None:
+            self.posted[0].wait()
+            self.posted = None
 
 
 def to_device(batch: dict, dev) -> dict:
@@ -154,60 +196,64 @@ class TracedStretch:
             self.done = self.units
 
 
-# ---------------------------------------------------------------- inference
-
-def build_inference(cell, pcfg, sd, dev):
-    kind = cell.cfg["bench"]["model"]
-    with torch.device(dev):
-        if kind == "second":
-            from vision3d_tpu_torch.models.second import Second
-            model = Second(pcfg)
-        elif kind == "pvrcnn2":
-            from vision3d_tpu_torch.models.pvrcnn import PV_RCNN
-            model = PV_RCNN(pcfg, two_stage=True)
-        else:
-            raise KeyError(f"unknown model {kind!r} in config of {cell.name!r}")
-    model.load_state_dict(sd, strict=True)
-    return model.eval()
-
-
-def control_outputs(cell, sd, batch, anchors, u):
-    """The reference in float8 in the program's place: the same outputs
-    the program's timed path gives."""
-    cfg = cell.cfg
-    with weights.no_tf32(), torch.no_grad():
-        ctx = ref.Ctx("eval", quant=True)
-        pv = cfg["bench"]["model"] == "pvrcnn2"
-        x, cls, reg, scales = ref.second_maps(ctx, sd, cfg, batch["points"], batch["num_points"],
-                                              need_scales=pv)
-        scores, idx = compare.program_choice(cls, cfg["proposal"]["topk"])
-        boxes = compare.decoded_at(reg, anchors, idx)
-        out = dict(cls=cls, reg=reg)
-        if pv:
-            kp, pf, _ = ref.point_branch(ctx, sd, cfg, batch["points"], batch["num_points"],
-                                         x, scales)
-            out.update(keypoints=kp, point_features=pf, proposals=boxes)
-            boxes, conf_logit, deltas = ref.stage2(ctx, sd, cfg, boxes, kp, pf, u)
-            out["refine"] = (deltas, conf_logit)
-            scores = torch.sigmoid(conf_logit) * scores
-        keep = ref.nms_keep(boxes, scores, cfg["proposal"]["nms_iou_threshold"],
-                            cfg["iou_angle_mode"])
-        valid = keep & (scores > cfg["anchors"][0]["score_thresh"])
-        out["det"] = (boxes, scores, torch.zeros_like(idx, dtype=torch.int32), valid)
+def seeded_draws(cell, seed, count, dev):
+    """The model file's per-batch draws of pool batches 0..count-1, on the
+    device (None where it draws nothing)."""
+    out = []
+    for i in range(count):
+        d = cell.model.draws(seed, i, cell.mix["batch"], cell.cfg)
+        out.append(None if d is None else torch.from_numpy(d).to(dev))
     return out
 
 
-def run_infer(cell, seed, seconds, tracing, fault, control, dev, t_start):
-    cfg, mix = cell.cfg, cell.mix
-    pv = cfg["bench"]["model"] == "pvrcnn2"
+def process_part(cell, peak, found, failed, run, dev):
+    """What one process contributes to the result: its peak memory, the
+    forbidden modules it loaded, its failed batches or steps, and its
+    readings of the trace (per-layer metrics on the card, busy and wall
+    seconds, the breakdown)."""
+    tr = None
+    if run is not None:
+        readings = {}
+        if dev.type == "cuda":
+            readings = {m["name"]: cell.readers[m["name"]].read(run) for m in cell.per_layer}
+        tr = dict(readings=readings, busy_s=run.trace.busy_us() * 1e-6, window_s=run.wall_s,
+                  breakdown={"device_ops": run.trace.top_ops(),
+                             "idle_gaps": run.trace.idle_gaps()})
+    return dict(peak=peak, forbidden=found, failed=failed, trace=tr)
+
+
+def over_ranks(cell, parts):
+    """One result's device part from every rank's: the largest peak, the
+    union of forbidden modules, the most failures; each per-layer reading
+    rank 0's, or the largest over the ranks where its reader sets
+    ``OVER_RANKS = "max"``; busy seconds the mean over the cards, the
+    traced window and the breakdown rank 0's."""
+    out = dict(peak=max(p["peak"] for p in parts),
+               forbidden=sorted(set().union(*(p["forbidden"] for p in parts))),
+               failed=max(p["failed"] for p in parts), trace=None)
+    traces = [p["trace"] for p in parts]
+    if all(t is not None for t in traces):
+        readings = {}
+        for name, v in traces[0]["readings"].items():
+            if getattr(cell.readers[name], "OVER_RANKS", None) == "max":
+                vs = [t["readings"][name] for t in traces if t["readings"][name] is not None]
+                v = max(vs) if vs else None
+            readings[name] = v
+        out["trace"] = dict(traces[0], readings=readings,
+                            busy_s=sum(t["busy_s"] for t in traces) / len(traces))
+    return out
+
+
+# ---------------------------------------------------------------- inference
+
+def run_infer(cell, seed, seconds, tracing, fault, control, dev, t_start, ranks=None):
+    cfg, mix, mf = cell.cfg, cell.mix, cell.model
     anchors = torch.as_tensor(ref.make_anchors(cfg), device=dev)
     b, p = mix["batch"], mix["pool"]
-    draws = [torch.from_numpy(traffic.grid_draws(seed, i, b, cfg["proposal"]["topk"],
-                                                 cfg["gridpool"]["num_gridpoints"])).to(dev)
-             if pv else None for i in range(p + 1)]
-    sd = weights.draw(cfg, seed, dev)
+    draws = seeded_draws(cell, seed, p + 1, dev)
+    sd = weights.draw(mf.param_shapes(cfg), seed, dev)
     calib = to_device(traffic.make_batch(mix, seed, traffic.CALIBRATION, 0), dev)
-    weights.calibrate(cfg, sd, calib, anchors, draws[p])
+    mf.calibrate(cfg, sd, calib, anchors, draws[p])
     del calib
     pool = [to_device(traffic.make_batch(mix, seed, traffic.POOL, i), dev) for i in range(p)]
     if dev.type == "cuda":
@@ -216,29 +262,18 @@ def run_infer(cell, seed, seconds, tracing, fault, control, dev, t_start):
         torch.cuda.reset_peak_memory_stats(dev)
     outputs, cur, hooks, model = {}, {}, [], None
     if not control:
-        model = build_inference(cell, cell.program_config(), sd, dev)
-        hooks.append(model.head.register_forward_hook(
-            lambda _m, _a, o: cur.update(cls=o[0], reg=o[1])))
-        if pv:
-            hooks.append(model.keypoint_seg.register_forward_pre_hook(
-                lambda _m, a: cur.update(point_features=a[0])))
-            hooks.append(model.roi_grid_pool.register_forward_pre_hook(
-                lambda _m, a: cur.update(proposals=a[0], keypoints=a[1])))
-            hooks.append(model.refinement.register_forward_hook(
-                lambda _m, _a, o: cur.update(refine=o)))
+        model = mf.build(cell.program_config(), sd, dev)
+        hooks = mf.capture(model, cur)
 
     def program(batch, u):
-        if pv:
-            det, _ = model.inference_two_stage(batch["points"], batch["num_points"], anchors, u=u)
-        else:
-            det, _ = model.inference(batch["points"], batch["num_points"], anchors)
+        det = mf.infer(model, batch, anchors, u)
         return dict(cur, det=tuple(det))
 
     def forward(i):
         cur.clear()
         batch, u = pool[i], draws[i]
         if control:
-            out = control_outputs(cell, sd, batch, anchors, u)
+            out = mf.control(cfg, sd, batch, anchors, u)
         elif fault == "half_batch":
             h = b // 2
             half = program({k: v[:h] for k, v in batch.items()}, None if u is None else u[:h])
@@ -303,10 +338,7 @@ def run_infer(cell, seed, seconds, tracing, fault, control, dev, t_start):
         torch.cuda.empty_cache()
     numbers = {}
     for i in sample:
-        if pv:
-            got = compare.judge_pvrcnn(cfg, outputs[i], pool[i], sd, anchors, draws[i])
-        else:
-            got = compare.judge_second(cfg, outputs[i], pool[i], sd, anchors)
+        got = mf.judge(cfg, outputs[i], pool[i], sd, anchors, draws[i])
         for k, v in got.items():
             numbers[k] = max(numbers.get(k, v), v)
     frames = b * (attempted - failed)
@@ -317,180 +349,180 @@ def run_infer(cell, seed, seconds, tracing, fault, control, dev, t_start):
                    peak_mem_gib=(peak / 2**30, "GiB"))
     run = None
     if stretch is not None and stretch.prof is not None:
-        run = traced_run(cell, stretch, pool, draws if pv else None, sd, anchors)
-    return dict(attempted=attempted, failed=failed, metrics=metrics, numbers=numbers,
-                peak=peak, forbidden=found, run=run, window_s=window_s)
+        run = traced_run(cell, stretch, pool, draws, sd, anchors)
+    part = over_ranks(cell, [process_part(cell, peak, found, failed, run, dev)])
+    return dict(part, attempted=attempted, metrics=metrics, numbers=numbers,
+                window_s=window_s, kind=device_kind(dev), count=1)
+
+
+def device_kind(dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 # ----------------------------------------------------------------- training
 
-def trainable(cfg):
-    return [k for k in weights.param_shapes(cfg)
-            if not k.endswith((".running_mean", ".running_var", ".num_batches_tracked"))]
+@contextlib.contextmanager
+def skipped_allreduce(active: bool):
+    """The fault ``skip_allreduce``: the port's gradient all-reduce still
+    runs, so the ranks stay in step, but this rank throws its sums away and
+    keeps its own gradients."""
+    if not active:
+        yield
+        return
+    from vision3d_tpu_torch.parallel import mesh
+
+    def reduce_and_discard(params):
+        grads = [p.grad for p in params if p.grad is not None]
+        if grads:
+            dist.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+
+    saved, mesh.all_reduce_gradients = mesh.all_reduce_gradients, reduce_and_discard
+    try:
+        yield
+    finally:
+        mesh.all_reduce_gradients = saved
 
 
-def reference_train(cfg, sd, batches, anchors, quant=False):
-    """The reference's first steps from the same weights: (loss of each
-    step, the first gradient's norm per leaf as Adam gets it, after the
-    clip, the change of each leaf after the steps, the first step's head
-    maps, its counts)."""
-    names = trainable(cfg)
-    params = {k: sd[k].clone().requires_grad_(True) for k in names}
-    bufs = {k: v for k, v in sd.items() if k not in params}
-    opt = torch.optim.Adam(list(params.values()), lr=ref.lr_at(cfg, 0), betas=(0.9, 0.999),
-                           eps=1e-8)
-    losses, first, maps, step_counts = [], None, None, None
-    with weights.no_tf32():
-        for i, batch in enumerate(batches):
-            opt.zero_grad(set_to_none=True)
-            with torch.no_grad():
-                targets = ref.assign_targets(batch["boxes"], batch["gt_mask"], anchors, cfg)
-            ctx = ref.Ctx("train", quant)
-            _, cls, reg, _ = ref.second_maps(ctx, {**bufs, **params}, cfg, batch["points"],
-                                             batch["num_points"])
-            loss = ref.proposal_loss(cls, reg, targets, cfg["train"]["lam"])["loss"]
-            loss.backward()
-            grads = [p.grad for p in params.values() if p.grad is not None]
-            norm = torch.sqrt(sum(g.square().sum() for g in grads))
-            if norm >= cfg["train"]["grad_clip_norm"]:
-                torch._foreach_mul_(grads, cfg["train"]["grad_clip_norm"] / norm)
-            if i == 0:
-                first = {k: float(p.grad.norm()) if p.grad is not None else 0.0
-                         for k, p in params.items()}
-                step_counts = ctx.counts
-                maps = dict(cls=cls.detach(), reg=reg.detach())
-            for group in opt.param_groups:
-                group["lr"] = ref.lr_at(cfg, i)
-            opt.step()
-            losses.append(float(loss.detach()))
-            del cls, reg, loss
-    change = {k: float((params[k].detach() - sd[k]).norm()) for k in names}
-    return losses, first, change, maps, step_counts
+def rank_param_gap(model) -> float:
+    """The largest difference of any parameter between any two ranks."""
+    v = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+    hi, lo = v.clone(), v.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return float((hi - lo).max())
 
 
-def train_numbers(cfg, got, want):
-    losses_p, first_p, change_p, maps_p = got
-    losses_r, first_r, change_r, maps_r, _ = want
-    n = min(len(maps_p["cls"]), len(maps_r["cls"]))    # a half batch compares its half
-    med = float(np.median([first_r[k] for k in first_r]))
-    counted = [k for k in first_r if first_r[k] >= 1e-3 * med]
-    shapes = weights.param_shapes(cfg)
-    grad = compare.leaf_gaps(first_p, first_r, counted)
-    step = compare.leaf_gaps(change_p, change_r, counted)
-    return dict(loss_gap=max(abs(a - b) / abs(b) for a, b in zip(losses_p, losses_r)),
-                grad_gap=max(grad.values()),
-                grad_gap_weights=max(v for k, v in grad.items() if len(shapes[k][0]) >= 2),
-                step_gap=max(step.values()),
-                loss_gap_first=abs(losses_p[0] - losses_r[0]) / abs(losses_r[0]),
-                cls_gap_first=compare.rel_gap(maps_p["cls"][:n], maps_r["cls"][:n]),
-                reg_gap_first=compare.rel_gap(maps_p["reg"][:n], maps_r["reg"][:n]),
-                grad_gap_median=float(np.median(list(grad.values()))),
-                step_gap_median=float(np.median(list(step.values()))),
-                leaves_counted=len(counted))
-
-
-def run_train(cell, seed, seconds, tracing, fault, control, dev, t_start):
-    cfg, mix = cell.cfg, cell.mix
+def run_train(cell, seed, seconds, tracing, fault, control, dev, t_start, ranks=None):
+    """Training steps back to back. On several cards (``ranks``) every rank
+    runs this on its share of each global batch of ``batch x chips``
+    frames, and the reference's steps too; rank 0 returns the result, the
+    others None."""
+    cfg, mix, mf = cell.cfg, cell.mix, cell.model
+    rank, world = (ranks.rank, ranks.world) if ranks else (0, 1)
     anchors = torch.as_tensor(ref.make_anchors(cfg), device=dev)
     b, p = mix["batch"], mix["pool"]
     wlh = cfg["anchors"][0]["wlh"]
-    sd = weights.draw(cfg, seed, dev)
-    pool = [to_device(traffic.make_batch(mix, seed, traffic.POOL, i, wlh), dev) for i in range(p)]
+    sd = weights.draw(mf.param_shapes(cfg), seed, dev)
+    gmix, share = dict(mix, batch=b * world), slice(b * rank, b * (rank + 1))
+    pool = [to_device(traffic.make_batch(gmix, seed, traffic.POOL, i, wlh, share), dev)
+            for i in range(p)]
     checked = cfg["bench"]["check_steps"]
     if dev.type == "cuda":
         sync(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     attempted = failed = 0
-    window_s, stretch, found = 0.0, None, forbidden_modules()
+    window_s, stretch, found, run, gap = 0.0, None, forbidden_modules(), None, None
     if control:
-        got = reference_train(cfg, sd, pool[:checked], anchors, quant=True)[:4]
+        got = mf.reference_steps(cfg, sd, pool[:checked], anchors, quant=True,
+                                 over_ranks=ranks is not None)[:4]
         setup_s = time.perf_counter() - t_start
         metrics = {}
     else:
-        from vision3d_tpu_torch.training.train import create_train_state, make_train_step
-        pcfg = cell.program_config()
-        model, tx, state = create_train_state(
-            pcfg, steps_per_epoch=cfg["bench"]["steps_per_epoch"], device=dev, state_dict=sd)
-        step_fn = make_train_step(model, tx, pcfg, anchors=anchors)
-        named = dict(model.named_parameters())
-        start = {k: v.detach().clone() for k, v in named.items()}
-        if fault == "dw_scale":
-            named[DW_FAULT_LEAF].register_hook(lambda g: 2 * g)
+        with skipped_allreduce(fault == "skip_allreduce" and rank == 1):
+            model, tx, state, step_fn = mf.train_program(
+                cell.program_config(), sd, dev, cfg["bench"]["steps_per_epoch"], anchors)
+            named = dict(model.named_parameters())
+            start = {k: v.detach().clone() for k, v in named.items()}
+            if fault == "dw_scale":
+                named[mf.DW_FAULT_LEAF].register_hook(lambda g: 2 * g)
 
-        def step(i):
-            batch = pool[i]
-            if fault == "half_batch":
-                batch = {k: v[:b // 2] for k, v in batch.items()}
-            if fault == "unchanged":
-                saved = ({k: v.clone() for k, v in model.state_dict().items()}, state.step)
-            _, losses = step_fn(state, batch)
-            if fault == "unchanged":
-                model.load_state_dict(saved[0])
-                tx.adam.state.clear()
-                state.step = saved[1]
-            return losses["loss"]
+            def step(i):
+                batch = pool[i]
+                if fault == "half_batch":
+                    batch = {k: v[:b // 2] for k, v in batch.items()}
+                if fault == "unchanged":
+                    saved = ({k: v.clone() for k, v in model.state_dict().items()}, state.step)
+                _, losses = step_fn(state, batch)
+                if fault == "unchanged":
+                    model.load_state_dict(saved[0])
+                    tx.adam.state.clear()
+                    state.step = saved[1]
+                return losses["loss"]
 
-        losses, maps = [], {}
-        hook = model.head.register_forward_hook(
-            lambda _m, _a, o: maps.update(cls=o[0].detach().clone(), reg=o[1].detach().clone()))
-        for i in range(checked):
-            losses.append(float(step(i)))
-            if i == 0:
-                hook.remove()
-                first = {k: float(tx.adam.state[v]["exp_avg"].norm()) / 0.1
-                         if v in tx.adam.state else 0.0 for k, v in named.items()}
-        change = {k: float((v.detach() - start[k]).norm()) for k, v in named.items()}
-        got = (losses, first, change, maps)
-        del start
-        spans = None
-        if tracing:
-            spans = trace.Spans(model, sorted({s for r in cell.readers.values()
-                                               for s in r.SUBMODULES}))
-        sync(dev)
-        setup_s = time.perf_counter() - t_start
-        found = forbidden_modules()
-        stretch = TracedStretch(**cfg["bench"]["trace"][mix["mode"]], dev=dev) if tracing else None
-        pending = None
-        t0 = time.perf_counter()
-        n = 0
-        while True:
-            if (time.perf_counter() - t0 >= seconds
-                    and (stretch is None or stretch.done or n < stretch.start)):
-                break
-            i = (checked + n) % p
-            if stretch:
-                stretch.before(n, i)
-            try:
-                loss = step(i)
-            except (RuntimeError, ValueError):
-                traceback.print_exc()
-                loss = torch.tensor(float("nan"))
-            if pending is not None:            # read the last step's loss one step late
+            losses, maps = [], {}
+            hook = mf.capture_train(model, maps)
+            for i in range(checked):
+                losses.append(float(step(i)))
+                if i == 0:
+                    hook.remove()
+                    first = {k: float(tx.adam.state[v]["exp_avg"].norm()) / 0.1
+                             if v in tx.adam.state else 0.0 for k, v in named.items()}
+            change = {k: float((v.detach() - start[k]).norm()) for k, v in named.items()}
+            got = (losses, first, change, maps)
+            del start
+            spans = None
+            if tracing:
+                spans = trace.Spans(model, sorted({s for r in cell.readers.values()
+                                                   for s in r.SUBMODULES}))
+            sync(dev)
+            if ranks:
+                dist.barrier(group=ranks.host)      # every rank starts the window together
+            setup_s = time.perf_counter() - t_start
+            found = forbidden_modules()
+            stretch = (TracedStretch(**cfg["bench"]["trace"][mix["mode"]], dev=dev)
+                       if tracing else None)
+            pending = None
+            t0 = time.perf_counter()
+            n = 0
+            while True:
+                stop = (time.perf_counter() - t0 >= seconds
+                        and (stretch is None or stretch.done or n < stretch.start))
+                if ranks:
+                    stop = ranks.rank0_said(stop)   # rank 0 ends the window for all
+                if stop:
+                    break
+                i = (checked + n) % p
+                if stretch:
+                    stretch.before(n, i)
+                try:
+                    loss = step(i)
+                except (RuntimeError, ValueError):
+                    if ranks:                       # the ranks' collectives would part ways
+                        raise
+                    traceback.print_exc()
+                    loss = torch.tensor(float("nan"))
+                if pending is not None:            # read the last step's loss one step late
+                    failed += not math.isfinite(float(pending))
+                pending = loss
+                attempted += 1
+                if stretch:
+                    stretch.after(n)
+                n += 1
+            if pending is not None:
                 failed += not math.isfinite(float(pending))
-            pending = loss
-            attempted += 1
-            if stretch:
-                stretch.after(n)
-            n += 1
-        if pending is not None:
-            failed += not math.isfinite(float(pending))
-        window_s = time.perf_counter() - t0
-        if spans:
-            spans.remove()
-        del model, tx, state, step_fn, named
-        metrics = dict(train_frames_per_s=(b * (attempted - failed) / window_s, "frames/s"))
+            window_s = time.perf_counter() - t0
+            if spans:
+                spans.remove()
+            if ranks:
+                ranks.settle()
+                gap = rank_param_gap(model)
+            del model, tx, state, step_fn, named
+        # the global batch's frames: every rank runs the same steps; on N
+        # cards the rate is also ``train_frames_per_s_xN``, for a cell whose
+        # spread asks for a bound of its own
+        rate = (b * world * (attempted - failed) / window_s, "frames/s")
+        metrics = dict(train_frames_per_s=rate)
+        if world > 1:
+            metrics[f"train_frames_per_s_x{world}"] = rate
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     found = sorted(set(found) | set(forbidden_modules()))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    want = reference_train(cfg, sd, pool[:checked], anchors)
-    metrics.update(setup_s=(setup_s, "s"), peak_mem_gib=(peak / 2**30, "GiB"))
-    run = None
     if stretch is not None and stretch.prof is not None:
         run = traced_run(cell, stretch, pool, None, sd, anchors)
-    return dict(attempted=attempted, failed=failed, metrics=metrics,
-                numbers=train_numbers(cfg, got, want), peak=peak, forbidden=found, run=run,
-                window_s=window_s)
+    part = process_part(cell, peak, found, failed, run, dev)
+    parts = ranks.gather(part) if ranks else [part]
+    del run
+    want = mf.reference_steps(cfg, sd, pool[:checked], anchors, over_ranks=ranks is not None)
+    if rank != 0:
+        return None
+    numbers = mf.train_numbers(cfg, got, want)
+    if gap is not None:
+        numbers["rank_param_gap"] = gap
+    res = over_ranks(cell, parts)
+    metrics.update(setup_s=(setup_s, "s"), peak_mem_gib=(res["peak"] / 2**30, "GiB"))
+    return dict(res, attempted=attempted, metrics=metrics, numbers=numbers, window_s=window_s,
+                kind=device_kind(dev), count=world if ranks else 1)
 
 
 # -------------------------------------------------------------- the trace
@@ -508,25 +540,12 @@ class TracedRun:
 @torch.no_grad()
 def traced_run(cell, stretch, pool, draws, sd, anchors):
     tr = trace.Trace(stretch.prof)
-    cfg = cell.cfg
     per_index = {}
-    with weights.no_tf32():
-        for i in dict.fromkeys(stretch.indices):
-            ctx = ref.Ctx("eval")
-            batch = pool[i]
-            x, cls, reg, scales = ref.second_maps(ctx, sd, cfg, batch["points"],
-                                                  batch["num_points"],
-                                                  need_scales=draws is not None)
-            if draws is not None:
-                kp, pf, _ = ref.point_branch(ctx, sd, cfg, batch["points"], batch["num_points"],
-                                             x, scales)
-                boxes, logits = ref.decode_all(cls, reg, anchors)
-                _, idx = ref.topk_stable(logits, cfg["proposal"]["topk"])
-                proposals = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 7))
-                ref.stage2(ctx, sd, cfg, proposals, kp, pf, draws[i])
-            per_index[i] = ctx.counts
+    for i in dict.fromkeys(stretch.indices):
+        u = None if draws is None else draws[i]
+        per_index[i] = cell.model.counts(cell.cfg, sd, pool[i], anchors, u)
     return TracedRun(tr, [per_index[i] for i in stretch.indices], stretch.units,
-                     stretch.wall_s, cfg)
+                     stretch.wall_s, cell.cfg)
 
 
 # ------------------------------------------------------------------- main
@@ -544,18 +563,16 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
-def run_once(cell, seed, args, dev, t_start):
-    runner = {"infer": run_infer, "train": run_train}.get(cell.mix["mode"])
-    if runner is None:
-        raise KeyError(f"unknown traffic mode {cell.mix['mode']!r}")
+def run_once(cell, seed, args, dev, t_start, ranks=None):
+    runner = {"infer": run_infer, "train": run_train}[cell.mix["mode"]]
     return runner(cell, seed, args.seconds, bool(args.trace), args.fault, args.control, dev,
-                  t_start)
+                  t_start, ranks)
 
 
 def verdict(cell, res):
-    limits = cell.cfg["bench"]["limits"][cell.mix["mode"]]
-    checks = {k: {"value": res["numbers"][k], "limit": lim} for k, lim in limits.items()}
-    missing = [k for k in limits if k not in res["numbers"]]
+    checks = {k: {"value": res["numbers"][k], "limit": lim} for k, lim in cell.limits.items()
+              if k in res["numbers"]}
+    missing = [k for k in cell.limits if k not in res["numbers"]]
     ok = (not missing and res["attempted"] > 0 and res["failed"] == 0
           and all(c["value"] <= c["limit"] for c in checks.values()))
     return ok, checks
@@ -563,9 +580,8 @@ def verdict(cell, res):
 
 def result_line(cell, res, args, dev):
     ok, checks = verdict(cell, res)
-    device = {"platform": "gpu" if dev.type == "cuda" else "cpu",
-              "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-              "count": 1, "memory_peak_bytes": int(res["peak"])}
+    device = {"platform": "gpu" if dev.type == "cuda" else "cpu", "kind": res["kind"],
+              "count": res["count"], "memory_peak_bytes": int(res["peak"])}
     if dev.type == "cuda":
         device["power_limit"] = power_limit()
     line = {"correct": ok, "attempted": res["attempted"], "failed": res["failed"]}
@@ -574,19 +590,63 @@ def result_line(cell, res, args, dev):
         names = {m["name"] for m in cell.end_to_end}
         metrics = {k: {"value": v, "unit": u} for k, (v, u) in res["metrics"].items()
                    if k in names}
-    run = res["run"]
-    if args.trace and dev.type == "cuda" and run is not None:
+    tr = res["trace"]
+    if args.trace and dev.type == "cuda" and tr is not None:
         for m in cell.per_layer:
-            v = cell.readers[m["name"]].read(run)
+            v = tr["readings"].get(m["name"])
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-        device["busy_s"] = run.trace.busy_us() * 1e-6
-        device["window_s"] = run.wall_s
-        line["breakdown"] = {"device_ops": run.trace.top_ops(), "idle_gaps": run.trace.idle_gaps()}
+        device["busy_s"] = tr["busy_s"]
+        device["window_s"] = tr["window_s"]
+        line["breakdown"] = tr["breakdown"]
     line["metrics"] = metrics
     line["device"] = device
     line["checks"] = checks
     return line
+
+
+def readings(cell, args, dev, ranks=None):
+    """``--readings N``: N seeds from ``--seed``, one line of numbers each
+    (printed by rank 0)."""
+    for k in range(args.readings):
+        seed = args.seed + k
+        res = run_once(cell, seed, args, dev, time.perf_counter(), ranks)
+        if res is not None:
+            ok, checks = verdict(cell, res)
+            print(json.dumps({"seed": seed, "correct": ok, "numbers": res["numbers"],
+                              "attempted": res["attempted"], "failed": res["failed"]}),
+                  flush=True)
+        del res
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def rank_main(payload):
+    """One rank of a cell on several cards, in a process that
+    ``mesh.launch`` started with the coordinator's address, the world size
+    and the rank in its environment: rank r drives card r. Returns rank 0's
+    result, None on the others."""
+    argv, t_start = payload
+    args = parse_args(argv)
+    rank, world = int(os.environ["PROCESS_ID"]), int(os.environ["NUM_PROCESSES"])
+    dev = torch.device(args.device)
+    kw = {}
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://{os.environ['COORDINATOR_ADDRESS']}",
+                            world_size=world, rank=rank, timeout=RANK_TIMEOUT, **kw)
+    try:
+        host = dist.new_group(backend="gloo") if dev.type == "cuda" else dist.group.WORLD
+        ranks = Ranks(rank, world, host)
+        cell = Cell(args.workload, quick=dev.type == "cpu")
+        if args.readings:
+            return readings(cell, args, dev, ranks)
+        return run_once(cell, args.seed, args, dev, t_start, ranks)
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv, t_start):
@@ -599,24 +659,27 @@ def main(argv, t_start):
                   f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
                   file=sys.stderr)
             return 2
-        torch.cuda.set_device(dev if dev.index is not None else 0)
-        dev = torch.device("cuda", torch.cuda.current_device())
-    if args.readings:
-        for k in range(args.readings):
-            seed = args.seed + k
-            res = run_once(cell, seed, args, dev, time.perf_counter())
-            ok, checks = verdict(cell, res)
-            print(json.dumps({"seed": seed, "correct": ok, "numbers": res["numbers"],
-                              "attempted": res["attempted"], "failed": res["failed"]}),
-                  flush=True)
-            del res
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        return 0
-    res = run_once(cell, args.seed, args, dev, t_start)
-    if res["forbidden"]:
-        print(f"modules of JAX or the JAX package loaded: {', '.join(res['forbidden'])}",
+    if args.fault == "skip_allreduce" and cell.chips < 2:
+        print(f"{args.workload}: the fault skip_allreduce needs a cell on several chips",
               file=sys.stderr)
+        return 2
+    if cell.chips > 1:
+        from vision3d_tpu_torch.parallel import mesh
+
+        res = mesh.launch(rank_main, cell.chips, (argv, t_start))
+        if args.readings:
+            return 0
+    else:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev if dev.index is not None else 0)
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if args.readings:
+            readings(cell, args, dev)
+            return 0
+        res = run_once(cell, args.seed, args, dev, t_start)
+    found = sorted(set(res["forbidden"]) | set(forbidden_modules()))
+    if found:
+        print(f"modules of JAX or the JAX package loaded: {', '.join(found)}", file=sys.stderr)
         return 3
     line = result_line(cell, res, args, dev)
     for k, c in line["checks"].items():

@@ -9,7 +9,8 @@ module reads those ranges from a ``trace.Trace``, per span name:
 - ``kernel_us``: device time of the kernels launched inside the span, on
   the span's host thread (as ``Trace.span_kernel_us``), or with
   ``any_thread`` on any thread while the span is open (autograd launches
-  the backward's kernels from its own device thread);
+  the backward's kernels from its own device thread), all or those a
+  pattern names;
 - ``idle_us``: the span's intervals less the union of device work (kernels,
   copies, fills);
 - ``count``: runtime calls of the given names made on the span's thread
@@ -22,6 +23,7 @@ time and self time, for the profile tools under ``tools/``.
 """
 
 import bisect
+import re
 
 PREFIX = "v3d:"
 SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
@@ -83,13 +85,16 @@ def busy(tr):
     return _union((d["ts"], d["ts"] + d["dur"]) for d in tr.device)
 
 
-def kernel_us(tr, name, any_thread=False):
-    """Device µs of the kernels launched inside the spans of ``name``."""
+def kernel_us(tr, name, any_thread=False, match=None):
+    """Device µs of the kernels launched inside the spans of ``name`` (with
+    ``match`` only those whose name the regular expression finds)."""
     by_tid = intervals(tr, name, any_thread)
     if by_tid is None:
         return None
     total = 0.0
     for k in tr.kernels:
+        if match is not None and not re.search(match, k["name"]):
+            continue
         lau = tr.launch.get(k.get("args", {}).get("correlation"))
         if lau is None:
             continue

@@ -19,7 +19,9 @@ dict as running statistics (the benchmark's calibration of fresh weights).
 to float8 e4m3, and the gradient that reaches its output to float8 e5m2,
 each with one scale per tensor: the control, one precision below the
 bfloat16 the configuration states. ``Ctx.counts`` collects the work of each sparse conv (active input
-and output sites, neighbour pairs hit) for the rooflines and ``mfu``.
+and output sites, neighbour pairs hit) for the rooflines and ``mfu``. With ``over_ranks`` a
+``Ctx`` computes one rank's share of a global batch too large for one card, its sums over the
+batch taken over the ranks (``torch.distributed``).
 """
 
 import itertools
@@ -27,6 +29,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # SpMiddleFHD's blocks: submanifold widths, then the strided conv's
@@ -59,12 +62,39 @@ class _GradFp8(torch.autograd.Function):
         return fp8_round(g, torch.float8_e5m2)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """A tensor summed over the process group's ranks; its gradient is the
+    sum of every rank's gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
 class Ctx:
-    def __init__(self, mode: str = "eval", quant: bool = False):
+    """``over_ranks``: this process computes one rank's share of a global
+    batch, and every sum over the batch (batch-norm statistics, the loss
+    normaliser) is taken over all ranks of the default process group, so the
+    ranks together compute the global batch's forward."""
+
+    def __init__(self, mode: str = "eval", quant: bool = False, over_ranks: bool = False):
         if mode not in ("eval", "train", "calib"):
             raise ValueError(f"unknown reference mode {mode!r}")
         self.mode, self.quant = mode, quant
         self.counts = []
+        self.world = dist.get_world_size() if over_ranks else 1
+
+    def total(self, x):
+        """``x`` summed over the ranks (``x`` itself on one)."""
+        return _SumOverRanks.apply(x) if self.world > 1 else x
 
     def q(self, x):
         """An operand of a matmul or conv, rounded to float8 (the gradient
@@ -95,13 +125,15 @@ def batch_norm(ctx, sd, prefix, x, mask=None, eps=1e-3, channel_dim=-1):
         axes = [a for a in range(x.dim()) if a != channel_dim % x.dim()]
         if mask is None:
             n = x.numel() // x.shape[channel_dim]
-            mean = x.sum(dim=axes) / n
-            var = (x - mean.view(shape)).square().sum(dim=axes) / n
+            if ctx.world > 1:       # the ranks' shares differ (a sparse conv's sites)
+                n = ctx.total(torch.tensor(float(n), dtype=x.dtype, device=x.device))
+            mean = ctx.total(x.sum(dim=axes)) / n
+            var = ctx.total((x - mean.view(shape)).square().sum(dim=axes)) / n
         else:
             w = mask.unsqueeze(channel_dim).to(x.dtype)
-            n = w.sum().clamp(min=1.0)
-            mean = (x * w).sum(dim=axes) / n
-            var = ((x - mean.view(shape)).square() * w).sum(dim=axes) / n
+            n = ctx.total(w.sum()).clamp(min=1.0)
+            mean = ctx.total((x * w).sum(dim=axes)) / n
+            var = ctx.total(((x - mean.view(shape)).square() * w).sum(dim=axes)) / n
         if ctx.mode == "calib":
             sd[prefix + ".running_mean"] = mean.detach().clone()
             sd[prefix + ".running_var"] = var.detach().clone()
@@ -628,12 +660,15 @@ def assign_targets(boxes, gt_mask, anchors, cfg, chunk=8192):
             g_reg.reshape(shape + (7,)), m_reg.reshape(shape))
 
 
-def proposal_loss(cls, reg, targets, lam):
+def proposal_loss(cls, reg, targets, lam, total):
     """Focal loss (alpha 0.25, gamma 2) at non-ignored anchors plus
     smooth-L1 at positives (the yaw term counted 3/pi, as the model's
-    reference sums it), both over the positive count clamped to 1."""
+    reference sums it), both over the positive count clamped to 1. The
+    count is ``total``'s (``Ctx.total``) of this batch's: over the ranks,
+    the global batch's, so that a rank's loss is its share of the global
+    loss."""
     g_cls, m_cls, g_reg, m_reg = targets
-    norm = m_reg.float().sum().clamp(min=1.0)
+    norm = total(m_reg.float().sum()).clamp(min=1.0)
     p = torch.sigmoid(cls)
     ce = F.binary_cross_entropy_with_logits(cls, g_cls, reduction="none")
     p_t = p * g_cls + (1 - p) * (1 - g_cls)
@@ -645,6 +680,15 @@ def proposal_loss(cls, reg, targets, lam):
     scale[6] = 3.0 / math.pi
     reg_loss = ((per * scale).sum(-1) * m_reg.float()).sum() / norm
     return dict(loss=cls_loss + lam * reg_loss, cls_loss=cls_loss, reg_loss=reg_loss)
+
+
+def sum_over_ranks_(tensors):
+    """Each tensor replaced, in place, by its sum over the ranks of the
+    default process group (one all-reduce of them all, flattened)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    for t, s in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(s.view_as(t))
 
 
 def lr_at(cfg, count):

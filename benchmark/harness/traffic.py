@@ -10,7 +10,10 @@ the original at a seed.
 A mix (``traffic/<name>.json``) gives the batch, the points per frame,
 the number of distinct batches in the pool the window cycles through
 (one client sends them back to back) and, for training, the ground-truth
-slots per frame and the share that is valid. The pool's frames are one fixed catalogue of
+slots per frame and the share that is valid. ``batch`` is one card's: a
+cell on N cards draws global batches of N x ``batch`` frames, and rank r
+takes frames ``batch*r`` to ``batch*r + batch - 1`` of each, so the global
+traffic does not depend on the number of ranks. The pool's frames are one fixed catalogue of
 ``pool * batch`` frames, the same for every seed; the seed deals them into
 batches in its own order and draws the training boxes, so every seed gives
 the window the same work in another order (the active sites, and so the
@@ -111,25 +114,30 @@ def catalogue_frame(k: int, points: int) -> np.ndarray:
     return clouds(rng, 1, points)[0][0]
 
 
-def make_batch(mix: dict, seed: int, stream: int, index: int, wlh=None) -> dict:
-    """Batch ``index`` of stream ``stream`` of a mix, as numpy arrays."""
+def make_batch(mix: dict, seed: int, stream: int, index: int, wlh=None,
+               rows: slice = slice(None)) -> dict:
+    """Batch ``index`` of stream ``stream`` of a mix, as numpy arrays.
+    ``rows`` takes a share of its frames (one rank's of a global batch):
+    the same frames and boxes as those rows of the whole batch, whatever
+    the share."""
     b, p = mix["batch"], mix["points"]
     rng = rng_for(seed, stream, index)
     if stream == POOL:
-        order = rng_for(seed, ORDER).permutation(mix["pool"] * b)[index * b:(index + 1) * b]
+        order = rng_for(seed, ORDER).permutation(mix["pool"] * b)[index * b:(index + 1) * b][rows]
         pts = np.stack([catalogue_frame(int(k), p) for k in order])
-        num = np.full((b,), p, np.int32)
+        num = np.full((len(order),), p, np.int32)
     else:
         pts, num = clouds(rng, b, p)
+        pts, num = pts[rows], num[rows]
     if mix["mode"] == "train":
-        return dict(points=pts, num_points=num,
-                    **train_boxes(rng, b, mix["max_gt"], mix["gt_valid_share"],
-                                  np.asarray(wlh, np.float32)))
+        boxes = train_boxes(rng, b, mix["max_gt"], mix["gt_valid_share"],
+                            np.asarray(wlh, np.float32))
+        return dict(points=pts, num_points=num, **{k: v[rows] for k, v in boxes.items()})
     return dict(points=pts, num_points=num)
 
 
 def grid_draws(seed: int, index: int, batch: int, proposals: int, gridpoints: int):
-    """PV-RCNN's grid-point draws for pool batch ``index``: uniform in
-    [0, 1), (batch, proposals, gridpoints, 3) float32."""
+    """Grid-point draws for pool batch ``index`` (a two-stage model's RoI
+    grid): uniform in [0, 1), (batch, proposals, gridpoints, 3) float32."""
     rng = rng_for(seed, GRID_DRAWS, index)
     return rng.uniform(size=(batch, proposals, gridpoints, 3)).astype(np.float32)

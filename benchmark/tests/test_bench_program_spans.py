@@ -26,13 +26,17 @@ def runtime(name, ts, tid=MAIN, corr=None, dur=1):
     return e
 
 
-def kernel(corr, ts, dur):
-    return dict(ph="X", cat="kernel", name=f"k{corr}", ts=ts, dur=dur, tid=7,
+def kernel(corr, ts, dur, name=None):
+    return dict(ph="X", cat="kernel", name=name or f"k{corr}", ts=ts, dur=dur, tid=7,
                 args={"correlation": corr})
 
 
-# one batch (inference, 0-100 us) and one training step's backward and
-# optimizer (200-330 us)
+NCCL = "ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)"
+
+
+# one batch (inference, 0-100 us), a global sum outside every span
+# (152-158 us), and one training step's backward, optimizer and gradient
+# all-reduce (200-350 us)
 EVENTS = [
     span("inference", 0, 100),
     span("plan", 10, 20), span("plan", 12, 8),                # nested, one name
@@ -41,10 +45,13 @@ EVENTS = [
     runtime("cudaLaunchKernel", 55, corr=2), kernel(2, 60, 10),  # 60-70
     runtime("cudaStreamSynchronize", 81),
     runtime("cudaMemcpyAsync", 105), runtime("cudaStreamSynchronize", 106),  # read-back
+    runtime("cudaLaunchKernelExC", 150, corr=8), kernel(8, 152, 6, NCCL),  # 152-158
     span("backward", 200, 100),
     runtime("cudaLaunchKernel", 210, tid=AUTOGRAD, corr=5), kernel(5, 220, 40),  # 220-260
     span("optimizer", 300, 30),
     runtime("cudaLaunchKernel", 301, corr=6), kernel(6, 305, 5),  # 305-310
+    span("allreduce", 340, 10),
+    runtime("cudaLaunchKernelExC", 341, corr=7), kernel(7, 343, 4, NCCL),  # 343-347
 ]
 
 
@@ -70,6 +77,12 @@ def tr():
 def test_backward_kernels_launched_from_another_thread(tr):
     assert ps.kernel_us(tr, "backward") == 0.0
     assert ps.kernel_us(tr, "backward", any_thread=True) == 40.0
+
+
+def test_kernels_of_a_span_by_name(tr):
+    assert ps.kernel_us(tr, "allreduce", match="^nccl") == 4.0
+    assert ps.kernel_us(tr, "allreduce", match="^k") == 0.0
+    assert ps.kernel_us(tr, "plan", match="^k") == 18.0
 
 
 def test_idle_inside_a_span_partly_covered(tr):
@@ -101,7 +114,8 @@ READERS = {
     "voxelize_ms.infer": None, "plan_ms.infer": 0.018, "plan_idle_ms.infer": 0.012,
     "nms_idle_ms.infer": 0.030, "host_syncs.infer": 1.0, "fps_idle_ms.infer": None,
     "target_assign_ms.train": None, "backward_ms.train": 0.040,
-    "optimizer_idle_ms.train": 0.025,
+    "optimizer_idle_ms.train": 0.025, "allreduce_ms.train": 0.004,
+    "global_sums_ms.train": 0.006,
 }
 
 

@@ -53,3 +53,17 @@ def test_every_seed_deals_the_same_pool():
     assert not np.array_equal(ba[0]["boxes"], bb[0]["boxes"])
     again = frames(11)[0]
     assert np.array_equal(fa, again)
+
+
+def test_rank_shares_make_the_global_batch():
+    """Rank r's share of a global batch is rows ``batch*r`` on of the whole,
+    so the global traffic does not depend on the number of ranks."""
+    mix = dict(mode="train", batch=8, points=1200, pool=2, max_gt=4, gt_valid_share=0.5)
+    wlh = [1.6, 3.9, 1.56]
+    whole = traffic.make_batch(mix, 2**31 + 13, traffic.POOL, 1, wlh)
+    for ranks in (2, 4):
+        b = mix["batch"] // ranks
+        shares = [traffic.make_batch(mix, 2**31 + 13, traffic.POOL, 1, wlh,
+                                     slice(b * r, b * (r + 1))) for r in range(ranks)]
+        for k in whole:
+            assert np.array_equal(np.concatenate([s[k] for s in shares]), whole[k]), k
