@@ -8,7 +8,8 @@ command-line entry points on a synthetic KITTI-format set, runs
 PV-RCNN inference, one stage and two, at full width and through eval_cli,
 trains PV-RCNN in both modes at full width and through train_cli, trains
 SECOND with dense late stages and on the column backend, runs and trains
-PV-RCNN on the column backend, and trains on several ranks.
+PV-RCNN on the column backend, trains on several ranks, and runs Voxel
+R-CNN inference at full width.
 
     python3 chip_smoke.py
 
@@ -182,11 +183,27 @@ Phases, each printing lines before the last:
      path's, every other kernel launched no time; capacity counters 0,
      finite outputs (the entry points raise on a non-finite checksum or
      loss), finite timings.
+ 13. Voxel R-CNN inference (``models/voxel_rcnn.py``) at the benchmark
+     cell voxelrcnn-car-infer-b8's configuration (configs/second/car.yaml
+     through ``voxel_rcnn_config``: VoxelBackBone8x all sparse,
+     BaseBEVBackbone, 100 RoIs a frame, bf16, batch 8 x 18,000 points) from
+     ``init_voxel_rcnn`` seed 0 with one batch's BN statistics: launches of
+     a two-stage forward (VOXEL_RCNN_LAUNCHES: 12 zwin_conv, 11 on the
+     tensor-core route, and 3 voxel_query), finite detections, no stage
+     dropping a site over VOXEL_RCNN_BATCHES batches; on the forward's own
+     scales and grid points, the voxel_query kernel (K2) equal to its
+     plain version and to the forward's rows, and run again with one taken
+     voxel dropped from the scale's map, which must fail; kernel and plain
+     CUDA-event medians, the bound and the distance tests per scale; the
+     (3, 1, 1) conv_out through ``embed_333`` on its own rulebook against
+     the plain version, with a broken copy (centre tap zeroed) that must
+     fail; the p50 of 10 forwards and the peak memory.
 Every PV-RCNN forward or step on the card, in every phase, launches
 ball_query as BALL_QUERIES says (12 a two-stage forward or step, 10 a
 stage-1 step, none for the BEV branch alone or SECOND). The last line is
 {"ok": true, "device": {...}}; the one before it lists the kernels as
-JSON (ball_query with its launches per forward and its times per query),
+JSON (ball_query and voxel_query with their launches per forward and
+their times per query),
 and the one before that is the card's name and power limit from
 nvidia-smi.
 """
@@ -223,10 +240,13 @@ from vision3d_tpu_torch.models.pvrcnn import (STAGE2_MODULES, bev_bilinear_gathe
 from vision3d_tpu_torch.models.refinement import apply_refinements, sample_gridpoints
 from vision3d_tpu_torch.models.rpn import BatchNorm2d
 from vision3d_tpu_torch.models.second import build_middle_input
+from vision3d_tpu_torch.models.voxel_rcnn import (VoxelRCNN, create_voxel_rcnn,
+                                                  roi_grid_points, voxel_rcnn_config)
 from vision3d_tpu_torch.models.sparse_cnn import (MaskedBatchNorm, SpMiddleFHD,
                                                   from_voxels, from_voxels_columns,
                                                   to_global)
 from vision3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain
+from vision3d_tpu_torch.ops import voxel_query as vq
 from vision3d_tpu_torch.ops.fps import sample_keypoints
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
@@ -336,6 +356,16 @@ DDP_FORMS = {"second_voxel": ("second", {}),
              "second_column4": ("second", dict(sparse_backend="column")),
              "pvrcnn2": ("pvrcnn2", {})}
 DDP_LOSS_TOL, DDP_GRAD_TOL, DDP_STAT_TOL = 1e-5, 1e-4, 1e-5
+# Voxel R-CNN (phase 13) on car.yaml's geometry and anchors, the benchmark
+# cell voxelrcnn-car-infer-b8's configuration: launches of a two-stage
+# forward (VoxelBackBone8x's 8 submanifold and 4 strided convs all sparse,
+# the first, C = 4, on "fma", the (3, 1, 1) conv_out through embed_333;
+# one voxel query a pooled scale), and the batches (kitti_like_batch
+# seeds) over which no stage may drop a site at dense_from_stage 4
+CAR_CONFIG = ROOT / "configs" / "second" / "car.yaml"
+VOXEL_RCNN_LAUNCHES = {"zwin_conv": 12, "zwin_conv.mma": 11, "zwin_conv.fma": 1,
+                       "voxel_query": 3}
+VOXEL_RCNN_BATCHES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -1359,14 +1389,17 @@ def pvrcnn_cfg(cfg):
 
 def calibrate_bn(model, points, num, anchors):
     """Every batch norm's running statistics set to those of one two-stage
-    forward on (points, num): train mode with momentum 1, no gradients."""
-    bns = [m for m in model.modules() if isinstance(m, (MaskedBatchNorm, BatchNorm2d))]
+    forward on (points, num): train mode with momentum 1, no gradients.
+    PV-RCNN's grid points are drawn from a CPU generator seeded 0."""
+    bns = [m for m in model.modules()
+           if isinstance(m, (MaskedBatchNorm, torch.nn.modules.batchnorm._BatchNorm))]
     saved = [m.momentum for m in bns]
     for m in bns:
         m.momentum = 1.0
     model.train()
+    kw = {} if isinstance(model, VoxelRCNN) else dict(generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        model.two_stage(points, num, anchors, generator=torch.Generator().manual_seed(0))
+        model.two_stage(points, num, anchors, **kw)
     model.eval()
     for m, mom in zip(bns, saved):
         m.momentum = mom
@@ -1595,6 +1628,190 @@ def ball_query_phase(model, inter, generator):
                              plain_ms=cuda_ms(lambda: ball_query_plain(xyz, msk, ctr, r, s),
                                               reps=3, warmup=1)))
     return rows
+
+
+def voxel_query_bound_ms(vmap, grid, points, lo, step, ranges, radius, nsample, voxels):
+    """The least time of one voxel query: the larger of its distance tests
+    at the float32 peak (8 operations a test: three differences, three
+    products, two sums; a scan tests the occupied in-grid cells of its
+    window up to its nsample-th hit, all of them when its ball never
+    fills) and its bytes (each grid point's xyz and cell, 24 bytes, and
+    each occupied voxel's centre, 12, read once; the rows written once) at
+    the card's bandwidth. Returns (ms, tests, bound by)."""
+    d, h, w = grid
+    b, g, _ = points.shape
+    dev = points.device
+    off = vq.window(ranges, dev)
+    cells = vq.grid_cells(points, lo, step, grid)
+    dims = torch.tensor([w, h, d], device=dev)
+    base = torch.arange(b, device=dev)[:, None, None] * (d * h * w)
+    lo_t, step_t = torch.from_numpy(lo).to(dev), torch.from_numpy(step).to(dev)
+    tests, chunk = 0, 4096
+    for c0 in range(0, g, chunk):
+        nb = cells[:, c0:c0 + chunk, None, :] + off                       # (B, C, T, 3)
+        inside = ((nb >= 0) & (nb < dims)).all(-1)
+        flat = ((nb[..., 2] * h + nb[..., 1]) * w + nb[..., 0]) + base
+        occupied = vmap[torch.where(inside, flat, vmap.numel() - 1)] >= 0
+        diff = (nb.float() + 0.5) * step_t + lo_t - points[:, c0:c0 + chunk, None, :]
+        hit = (occupied & ((diff * diff).sum(-1) <= vq._r2(radius))).int()
+        tests += int((occupied & (hit.cumsum(2) - hit < nsample)).sum())
+    ops_s = 8 * tests / F32_FLOP_PER_S
+    bytes_s = (b * g * (24 + 4 * nsample) + voxels * 12) / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), tests, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def embed_333_check(model, st):
+    """The (3, 1, 1) strided conv of ``VoxelBackBone8x`` (``conv_out``) on
+    the card, where ``zwin_conv`` runs it inside a (3, 3, 3) rulebook
+    (``embed_333``): on the stage's own rulebook, features and weight, in
+    bf16 against the plain version within 2e-2 of its scale (phase 2's
+    gate), and a weight with its centre tap zeroed must fail the same
+    gate. Returns the row of times and errors."""
+    cfg = model.cfg
+    si = len(model.cnn.block_specs()) - 1
+    spec = model.cnn.block_specs()[si][1]
+    w = model.cnn.down[si].weight.detach()
+    kernel = spec["kernel"]
+    _, rbd, _, _, _ = sp.plan_stage_batched(
+        st.keys, st.mask, st.grid, kernel, spec["stride"], spec["pad"], spec["out_cap"],
+        subm_kernel=(3, 3, 3), subm_col_cap=cfg.stage_column_capacity(si),
+        down_col_cap=cfg.stage_column_capacity(si + 1))
+    start, pattern = rbd
+    feats = st.feats.float()
+    dt = torch.bfloat16
+    got = zw.zwin_conv(feats, start, pattern, w, kernel, dt)
+    ref = sp.conv_zwin_apply(feats, start, pattern, w, kernel, dt)
+    scale = float(ref.abs().max())
+    check(scale > 0 and agrees(got, ref, 2e-2),
+          f"zwin_conv (3, 1, 1) through embed_333: kernel disagrees with the plain version "
+          f"(max abs err {float((got - ref).abs().max())}, scale {scale})")
+    c = feats.shape[-1]
+    broken_w = w.clone()
+    broken_w[c:2 * c] = 0                                   # the centre tap, dz 0
+    broken = zw.zwin_conv(feats, start, pattern, broken_w, kernel, dt)
+    check(not agrees(broken, ref, 2e-2),
+          "zwin_conv (3, 1, 1) through embed_333: a zeroed tap passed the check")
+    b, n = st.keys.shape
+    return dict(shape=f"s3_down_{c}x{w.shape[1]} (3, 1, 1)", B=b, N=n,
+                M=start.shape[1] // (kernel[1] * kernel[2]),
+                max_abs_err=float((got - ref).abs().max()), ref_scale=scale,
+                ms=cuda_ms(lambda: zw.zwin_conv(feats, start, pattern, w, kernel, dt)),
+                plain_ms=cuda_ms(lambda: sp.conv_zwin_apply(feats, start, pattern, w, kernel,
+                                                            dt), reps=5))
+
+
+def voxel_rcnn_phase(dev):
+    """Phase 13: Voxel R-CNN (``models/voxel_rcnn.py``) at the benchmark
+    cell's configuration (car.yaml's geometry and anchors, bf16, batch 8 x
+    18,000 points, 100 RoIs a frame), from ``init_voxel_rcnn`` seed 0 with
+    one batch's BN statistics: a two-stage forward launching as
+    VOXEL_RCNN_LAUNCHES says, finite outputs; no stage dropping a site on
+    VOXEL_RCNN_BATCHES batches (``dense_from_stage`` 4); on the forward's
+    own scales and grid points, the voxel query kernel (K2) equal to its
+    plain version on the same card tensors, and again with one taken voxel
+    dropped from the map, which must fail; kernel and plain CUDA-event
+    medians, the bound, per scale; the (3, 1, 1) conv through
+    ``embed_333`` (``embed_333_check``); the p50 of 10 forwards after 3
+    warm-ups and the peak memory."""
+    cfg = voxel_rcnn_config(Config.from_yaml(str(CAR_CONFIG)).replace(
+        compute_dtype="bfloat16"))
+    v = cfg.voxel_rcnn
+    model, anchors = create_voxel_rcnn(cfg, device=dev)
+    batches = [kitti_like_batch(i, BATCH, POINTS) for i in range(VOXEL_RCNN_BATCHES)]
+    batches = [(torch.from_numpy(p).to(dev), torch.from_numpy(n).to(dev)) for p, n in batches]
+    points, num_t = batches[0]
+    calibrate_bn(model, points, num_t, anchors)
+    with torch.no_grad():
+        (det, diag), launches = counted(
+            lambda: model.inference_two_stage(points, num_t, anchors), VOXEL_RCNN_LAUNCHES)
+        (out, _), _ = counted(lambda: model.two_stage(points, num_t, anchors),
+                              VOXEL_RCNN_LAUNCHES)
+        *_, scales = model.trunk(points, num_t, need_scales=True)
+        dropped = {}
+        for i, (p, n) in enumerate(batches):
+            _, _, _, d, _ = model.trunk(p, n, need_scales=False)
+            dropped[i] = {k: int(c) for k, c in d.items() if k.endswith("dropped")
+                          and k != "voxelizer_dropped"}
+            check(not any(dropped[i].values()), f"voxel_rcnn batch {i}: dropped {dropped[i]}")
+    for f, t in det._asdict().items():
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"voxel_rcnn: non-finite {f}")
+    check(tuple(out["rois"].shape) == (BATCH, cfg.proposal.topk, 7),
+          f"voxel_rcnn RoIs {tuple(out['rois'].shape)}")
+    grid = roi_grid_points(out["rois"], v.grid_size).reshape(BATCH, -1, 3).contiguous()
+    rows = []
+    with torch.no_grad():
+        for k, si in enumerate(v.scales):
+            st = scales[si]
+            lo, step = vq.geometry(cfg.voxel_size, cfg.grid_bounds, cfg.strides[si])
+            vmap = vq.row_map(st.keys, st.mask, st.grid)
+            query = (st.grid, grid, lo, step, v.query_range, v.pool_radius[k], v.nsample)
+            got = vq.voxel_query(vmap, *query)
+            want = vq.voxel_query_plain(vmap, *query)
+            check(torch.equal(got, want), f"voxel_query scale {si}: the kernel differs from "
+                                          f"the plain version")
+            check(torch.equal(got, out["rows"][k]), f"voxel_query scale {si}: the forward's "
+                                                    f"rows differ")
+            nonempty = (want[..., 0] >= 0).nonzero()
+            check(len(nonempty) > 0, f"voxel_query scale {si}: every ball is empty")
+            frame, point = (int(i) for i in nonempty[0])
+            cells = int(np.prod(st.grid))
+            at = (vmap[frame * cells:(frame + 1) * cells] == want[frame, point, 0]).nonzero()
+            broken_map = vmap.clone()
+            broken_map[frame * cells + int(at[0])] = -1
+            check(not torch.equal(vq.voxel_query(broken_map, *query), want),
+                  f"voxel_query scale {si}: a voxel dropped from a ball passed the check")
+            voxels = int(st.mask.sum())
+            bound, tests, by = voxel_query_bound_ms(vmap, *query, voxels)
+            rows.append(dict(
+                query=f"scale {si} r {v.pool_radius[k]}", stride=cfg.strides[si],
+                grid=list(st.grid), voxels=voxels, G=int(grid.shape[1]), S=v.nsample,
+                empty_share=float((got[..., 0] < 0).float().mean()),
+                full_share=float((got[..., -1] != got[..., 0]).float().mean()),
+                tests=tests, bound_ms=bound, bound_by=by,
+                ms=cuda_ms(lambda: vq.voxel_query(vmap, *query)),
+                plain_ms=cuda_ms(lambda: vq.voxel_query_plain(vmap, *query), reps=3, warmup=1),
+                row_map_ms=cuda_ms(lambda: vq.row_map(st.keys, st.mask, st.grid))))
+            del vmap, got, want, broken_map
+        embed = embed_333_check(model, scales[3])
+    del scales
+    times = []
+    with torch.no_grad():
+        for i in range(13):
+            if i == 3:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.inference_two_stage(points, num_t, anchors)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(1e3 * (time.perf_counter() - t0))
+    return dict(rois=cfg.proposal.topk, launches=launches,
+                counters={k: int(c) for k, c in diag.items()},
+                dropped=dropped, valid_per_frame=det.valid.sum(1).tolist(),
+                voxel_query_rows=rows, embed_333=embed, p50_ms=float(np.median(times)),
+                peak_mem_bytes=int(torch.cuda.max_memory_allocated()))
+
+
+def print_voxel_rcnn(vr):
+    """Phase 13's lines."""
+    print(f"voxel_rcnn (batch {BATCH} x {POINTS} points, bf16, seeded init + one batch's BN "
+          f"statistics, {vr['rois']} RoIs a frame): two stages p50 {vr['p50_ms']:.2f} ms, "
+          f"peak mem {vr['peak_mem_bytes'] / 2**30:.2f} GiB, valid detections per frame "
+          f"{vr['valid_per_frame']}, counters {vr['counters']}, launches per forward "
+          f"{vr['launches']}; dropped sites over {VOXEL_RCNN_BATCHES} batches "
+          f"{vr['dropped']}", flush=True)
+    for r in vr["voxel_query_rows"]:
+        print(f"voxel_query {r['query']} (stride {r['stride']}, grid {r['grid']}, "
+              f"{r['voxels']} voxels, G {r['G']}, nsample {r['S']}): equal to the plain "
+              f"version and to the forward's rows, a dropped voxel caught; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['tests']} tests), row map {r['row_map_ms']:.3f} ms, empty "
+              f"balls {r['empty_share']:.3f}, full {r['full_share']:.3f}", flush=True)
+    e = vr["embed_333"]
+    print(f"zwin_conv {e['shape']} through embed_333 (B {e['B']}, N {e['N']}, M {e['M']}): "
+          f"bf16 {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, err {e['max_abs_err']:.3g} of "
+          f"scale {e['ref_scale']:.3g}, a zeroed tap caught", flush=True)
 
 
 def pvrcnn_reference_phase(dev, backend="voxel"):
@@ -2871,6 +3088,11 @@ def main():
         print(f"{label}: launches per {'step' if 'train' in label else 'forward'} {per}",
               flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    vr = voxel_rcnn_phase(dev)
+    print_voxel_rcnn(vr)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -2903,6 +3125,11 @@ def main():
          # PV-RCNN's two stages
          "launches_bench_second_per_forward": benches["bench second"][1],
          "launches_bench_pvrcnn2_per_forward": benches["bench pvrcnn2"][1],
+         # Voxel R-CNN (phase 13): every stage sparse, the (3, 1, 1) conv
+         # through embed_333, held to the plain version at its shape
+         "launches_voxel_rcnn_per_forward": {k: n for k, n in vr["launches"].items()
+                                             if k.startswith("zwin_conv")},
+         "embed_333": vr["embed_333"],
          "ms": per(shapes, "bf16_ms", "launches_per_forward"),
          "plain_ms": per(shapes, "bf16_plain_ms", "launches_per_forward"),
          "bound_ms": per(shapes, "bf16_bound_ms", "launches_per_forward"),
@@ -3041,6 +3268,19 @@ def main():
          "dx_shapes": brief(bw_rows, "launches_dx_column_df4",
                             ("route", "M", "D", "active_taps", "active_out_sites",
                              "bf16_fma_ms") + times)},
+        {"name": "voxel_query", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/voxel_query.cu",
+         # the JAX package has no Voxel R-CNN
+         "replaces": None,
+         "launches_voxel_rcnn_per_forward": vr["launches"]["voxel_query"],
+         "ms": sum(r["ms"] for r in vr["voxel_query_rows"]),
+         "plain_ms": sum(r["plain_ms"] for r in vr["voxel_query_rows"]),
+         "bound_ms": sum(r["bound_ms"] for r in vr["voxel_query_rows"]),
+         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in vr["voxel_query_rows"])
+                      else "operations"),
+         # no PyTorch call takes the first nsample occupied window cells in scan order
+         "library_ms": None,
+         "shapes": vr["voxel_query_rows"]},
         {"name": "ball_query", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/ball_query.cu",
          # XLA code in the JAX package (vision3d_tpu/ops/ball_query.py)

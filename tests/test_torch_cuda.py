@@ -1,5 +1,5 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
-column_conv, zwin_align_v1, zwin_align_v3, ball_query) against their plain
+column_conv, zwin_align_v1, zwin_align_v3, ball_query, voxel_query) against their plain
 PyTorch versions, on the card, also inside the training autograd functions
 (SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), the column scales'
 conversions' backward, PV-RCNN's inference and training on both backends
@@ -122,6 +122,26 @@ def test_zwin_fma_route_forced_and_float32(c, cout, cuda_device):
         tzw.zwin_conv(feats[..., :4].contiguous(), start, pattern, w[: 27 * 4],
                       (3, 3, 3), torch.bfloat16, route="mma")
     assert _zw_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zwin_kernel_runs_the_311_conv(dtype, cuda_device):
+    """The (3, 1, 1) strided conv of the all-sparse stage 3 (64 -> 128),
+    embedded in the (3, 3, 3) kernel (``embed_333``): one launch, against
+    the plain (3, 1, 1) conv at 1e-5 of the output scale."""
+    rng = np.random.default_rng(31)
+    b, n, m, c, cout = 2, 3000, 2500, 64, 128
+    feats = torch.from_numpy(rng.normal(size=(b, n, c)).astype(np.float32)).to(cuda_device)
+    start = rng.integers(0, n + 1, (b, m)).astype(np.int32)
+    pattern = np.where(start == n, 0, rng.integers(0, 8, (b, m))).astype(np.int32)
+    start, pattern = (torch.from_numpy(a).to(cuda_device) for a in (start, pattern))
+    w = torch.from_numpy(rng.normal(size=(3 * c, cout)).astype(np.float32)).to(cuda_device)
+    before = tzw.LAUNCHES["zwin_conv"]
+    got = tzw.zwin_conv(feats, start, pattern, w, (3, 1, 1), dtype)
+    torch.cuda.synchronize()
+    assert tzw.LAUNCHES["zwin_conv"] == before + 1 and got.shape == (b, m, cout)
+    ref = tsp.conv_zwin_apply(feats, start, pattern, w, (3, 1, 1), dtype)
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-5)
 
 
 def test_zwin_mma_sparse_tiles_and_past_n(cuda_device):
@@ -1104,3 +1124,152 @@ def test_ball_query_launches_per_forward(cuda_device):
     assert launched == {"pvrcnn2": chip_smoke.BALL_QUERIES["pvrcnn2"], "pvrcnn_bev": 0,
                         "second": 0}
     assert chip_smoke.BALL_QUERIES["pvrcnn2"] == 12
+
+
+# ------------------------------------------------------------ voxel query (K2)
+
+def _vq_scale(dev, seed, b=2, grid=(21, 200, 176), per_frame=25000):
+    """A scale of a KITTI-like grid: per frame up to ``per_frame`` distinct
+    voxels, most on a sloped ground sheet a few cells thick, the rest
+    anywhere in z; (keys (B, N) sorted column-major, sentinel padded,
+    mask)."""
+    rng = np.random.default_rng(seed)
+    d, h, w = grid
+    n = per_frame + 1000
+    keys = np.full((b, n), d * h * w, np.int64)
+    for i in range(b):
+        y, x = rng.integers(0, h, 3 * per_frame), rng.integers(0, w, 3 * per_frame)
+        z = np.clip((5 + x // 60 + rng.integers(0, 3, 3 * per_frame)), 0, d - 1)
+        tall = rng.uniform(size=3 * per_frame) < 0.3
+        z = np.where(tall, rng.integers(0, d, 3 * per_frame), z)
+        k = np.unique((y * w + x) * d + z)[:per_frame]
+        k = k[rng.permutation(len(k))][:per_frame - 1000 * i]
+        keys[i, :len(k)] = np.sort(k)
+    keys = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    return keys, keys < d * h * w
+
+
+def _vq_equal(vmap, grid, pts, lo, step, ranges, radius, nsample):
+    """The kernel's rows against the plain version's on the same card
+    tensors, bit for bit; one launch counted."""
+    from vision3d_tpu_torch.ops import voxel_query as vq
+
+    before = vq.LAUNCHES["voxel_query"]
+    got = vq.voxel_query(vmap, grid, pts, lo, step, ranges, radius, nsample)
+    torch.cuda.synchronize()
+    assert vq.LAUNCHES["voxel_query"] == before + 1
+    want = vq.voxel_query_plain(vmap, grid, pts, lo, step, ranges, radius, nsample)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("stride,radius", [(2, 0.4), (4, 0.8), (8, 1.6)])
+def test_voxel_query_kernel_matches_plain(stride, radius, cuda_device):
+    """A mid-size scale (B 2, 24-25k voxels a frame on a (21, 200, 176)
+    grid) and 2 x 50 x 216 grid points over it and a little beyond its
+    edges, at each pooled scale's step and radius: rows bit-equal, some
+    balls non-empty, some full."""
+    from vision3d_tpu_torch.ops import voxel_query as vq
+
+    grid = (21, 200, 176)
+    keys, mask = _vq_scale(cuda_device, stride)
+    lo, step = vq.geometry((0.05, 0.05, 0.1), (0.0, -40.0, -3.0, 70.4, 40.0, 1.0), stride)
+    rng = np.random.default_rng(stride)
+    span = np.array([176, 200, 21], np.float32) * step
+    pts = lo + rng.uniform(-0.05, 1.05, (2, 50 * 216, 3)).astype(np.float32) * span
+    pts = torch.from_numpy(pts.astype(np.float32)).to(cuda_device).contiguous()
+    rows = _vq_equal(vq.row_map(keys, mask, grid), grid, pts, lo, step, (4, 4, 4), radius, 16)
+    assert bool((rows[..., 0] >= 0).any()) and bool((rows[..., -1] != rows[..., 0]).any())
+
+
+def test_voxel_query_kernel_at_the_radius(cuda_device):
+    """Grid points on the quarter-cell lattice of a 0.5 m grid: squared
+    distances to voxel centres are exact, and many equal r2 = 1.0 (taken),
+    others lie a float32 step beyond it (points moved by one ulp); points
+    outside the grid and NaN; window ranges that differ by axis and
+    nsample 1, 5, 20, 40: bit-equal."""
+    from vision3d_tpu_torch.ops import voxel_query as vq
+
+    grid = (8, 24, 28)
+    d, h, w = grid
+    rng = np.random.default_rng(9)
+    k = np.sort(rng.choice(d * h * w, 2000, replace=False))
+    keys = torch.from_numpy(np.concatenate([k, [d * h * w] * 5])[None].astype(np.int32))
+    keys = keys.to(cuda_device)
+    mask = keys < d * h * w
+    lo, step = np.zeros(3, np.float32), np.full(3, 0.5, np.float32)
+    q = rng.integers(-8, 4 * 30, (1, 3000, 3)).astype(np.float32) * 0.125
+    q[0, :500] = np.nextafter(q[0, :500], np.float32(100))
+    q[0, 500:510, 0] = np.nan
+    pts = torch.from_numpy(q).to(cuda_device).contiguous()
+    vmap = vq.row_map(keys, mask, grid)
+    for ranges, nsample in (((4, 4, 4), 1), ((1, 2, 3), 5), ((3, 3, 1), 20), ((4, 4, 4), 40)):
+        _vq_equal(vmap, grid, pts, lo, step, ranges, 1.0, nsample)
+
+
+def test_voxel_query_kernel_rejects_bad_input(cuda_device):
+    from vision3d_tpu_torch.ops import voxel_query as vq
+
+    grid = (2, 3, 4)
+    vmap = torch.full((2 * 24 + 1,), -1, dtype=torch.int32, device=cuda_device)
+    pts = torch.zeros((2, 5, 3), device=cuda_device)
+    lo, step = np.zeros(3, np.float32), np.ones(3, np.float32)
+    with pytest.raises(TypeError):
+        vq.voxel_query(vmap, grid, pts.double(), lo, step, (1, 1, 1), 1.0, 4)
+    with pytest.raises(ValueError):
+        vq.voxel_query(vmap[:-1], grid, pts, lo, step, (1, 1, 1), 1.0, 4)
+    with pytest.raises(ValueError):
+        vq.voxel_query(vmap, grid, pts[:, :, :2], lo, step, (1, 1, 1), 1.0, 4)
+    assert bool((vq.voxel_query(vmap, grid, pts, lo, step, (1, 1, 1), 1.0, 4) == -1).all())
+
+
+def test_voxel_rcnn_card_launches_and_rows(cuda_device):
+    """Voxel R-CNN at a small geometry in float32 on the card, its batch
+    norms calibrated on the batch by the plain reference
+    (``tests/plain_voxel_rcnn.py``, on the CPU): three voxel_query launches
+    a forward, and the card's rows equal to the plain version's on the
+    card's own RoIs and scales, most balls non-empty."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import plain_voxel_rcnn as plain
+    from vision3d_tpu_torch import kernels
+    from vision3d_tpu_torch.config import Config
+    from vision3d_tpu_torch.models import voxel_rcnn as vr
+    from vision3d_tpu_torch.ops import voxel_query as vq
+    from vision3d_tpu_torch.synthetic import kitti_like_points
+
+    cfg = Config()
+    cfg = vr.voxel_rcnn_config(cfg.replace(
+        max_voxels=4096, voxel_size=(0.2, 0.2, 0.1),
+        grid_bounds=(0.0, -12.8, -3.0, 25.6, 12.8, 1.0),
+        num_classes=1, anchors=cfg.anchors[:1], proposal=dataclasses.replace(cfg.proposal, topk=8)))
+    rng = np.random.default_rng(3)
+    frames = []
+    for _ in range(2):
+        p = kitti_like_points(rng, 50000)
+        frames.append(p[(p[:, 0] < 25.6) & (np.abs(p[:, 1]) < 12.8)][:2500])
+    pts, num = torch.from_numpy(np.stack(frames)), torch.tensor([2500, 2200])
+    model, anchors = vr.create_voxel_rcnn(cfg, device="cpu")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    plain.forward(plain.Ctx("calib"), sd, dataclasses.asdict(cfg), pts, num, anchors)
+    card, anchors = vr.create_voxel_rcnn(cfg, device=cuda_device, state_dict=sd)
+    pts, num = pts.to(cuda_device), num.to(cuda_device)
+    with torch.no_grad():
+        kernels.reset_launches()
+        out, _ = card.two_stage(pts, num, anchors)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["voxel_query"] == 3
+        *_, scales = card.trunk(pts, num, need_scales=True)
+        grid = vr.roi_grid_points(out["rois"], cfg.voxel_rcnn.grid_size)
+        grid = grid.reshape(2, -1, 3).contiguous()
+        for k, si in enumerate(cfg.voxel_rcnn.scales):
+            st = scales[si]
+            lo, step = vq.geometry(cfg.voxel_size, cfg.grid_bounds, cfg.strides[si])
+            want = vq.voxel_query_plain(vq.row_map(st.keys, st.mask, st.grid), st.grid, grid,
+                                        lo, step, cfg.voxel_rcnn.query_range,
+                                        cfg.voxel_rcnn.pool_radius[k], cfg.voxel_rcnn.nsample)
+            assert torch.equal(out["rows"][k], want)
+    assert float((out["rows"][1][..., 0] >= 0).float().mean()) > 0.5

@@ -244,6 +244,16 @@ def test_eval_cli_on_a_trained_checkpoint(trained, tmp_path):
     assert saved["0"] == table[0]
 
 
+def test_eval_cli_runs_voxel_rcnn(trained, tmp_path):
+    """``--model voxel_rcnn`` on the mini tree: fresh seeded weights, the
+    config's geometry with Voxel R-CNN's architecture, an AP table."""
+    yml, _, _, _ = trained
+    table, timing = eval_cli.main(["--config", str(yml), "--model", "voxel_rcnn",
+                                   "--batch-size", "2", "--device", "cpu"])
+    assert timing["frames"] == 2 and set(table) == {0}
+    assert all(0.0 <= v <= 100.0 for v in table[0].values())
+
+
 def _decode_png(data):
     """The RGB array of a PNG written by ``bev_drawer.write_png``: one
     IDAT, 8-bit truecolour, filter 0 on every row."""

@@ -2,7 +2,9 @@
 
 A copy of ``vision3d_tpu/config.py`` (the port imports nothing of the JAX
 package), field for field, so both packages parse the same YAML files and
-a ``Config`` means the same model in either. Mirrors every field of the reference's yacs config (reference:
+a ``Config`` means the same model in either. One field is the port's
+own, for Voxel R-CNN, which the JAX package lacks: ``voxel_rcnn``; at its
+default every JAX configuration builds the same model here. Mirrors every field of the reference's yacs config (reference:
 vision3d/core/config.py:1-110) and parses the same YAML override files
 (e.g. configs/second/car.yaml) verbatim, but is an immutable dataclass so
 it can be closed over by jit-compiled functions without retracing hazards.
@@ -95,6 +97,32 @@ class RefinementConfig:
 
     def __post_init__(self):
         object.__setattr__(self, "mlps", _freeze(self.mlps))
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelRCNNConfig:
+    """Voxel R-CNN's RoI head (Deng et al., AAAI 2021; OpenPCDet
+    ``kitti_models/voxel_rcnn_car.yaml`` ROI_HEAD), the port's own: the JAX
+    package has no such model. ``scales`` index the middle extractor's
+    scales (1, 2, 3: strides 2, 4, 8, ``x_conv2``-``x_conv4``), each pooled
+    by a voxel query over ``query_range`` voxels (x, y, z) either way and
+    ``pool_radius`` metres, ``nsample`` voxels a grid point; ``mlps`` are the
+    pre-MLP (and position) width and the out-MLP width of every scale."""
+
+    grid_size: int = 6
+    scales: tuple = (1, 2, 3)
+    query_range: tuple = (4, 4, 4)
+    pool_radius: tuple = (0.4, 0.8, 1.6)
+    nsample: int = 16
+    mlps: tuple = (32, 32)
+    shared_fc: tuple = (256, 256)
+    cls_fc: tuple = (256, 256)
+    reg_fc: tuple = (256, 256)
+
+    def __post_init__(self):
+        for f in ("scales", "query_range", "pool_radius", "mlps", "shared_fc", "cls_fc",
+                  "reg_fc"):
+            object.__setattr__(self, f, _freeze(getattr(self, f)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +273,7 @@ class Config:
     gridpool: GridPoolConfig = GridPoolConfig()
     proposal: ProposalConfig = ProposalConfig()
     refinement: RefinementConfig = RefinementConfig()
+    voxel_rcnn: VoxelRCNNConfig = VoxelRCNNConfig()
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
     aug: AugConfig = AugConfig()

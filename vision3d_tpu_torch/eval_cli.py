@@ -4,7 +4,7 @@ PV-RCNN over a split and report the official-protocol 3D AP@R40 table
 
     python -m vision3d_tpu_torch.eval_cli --config configs/second/all_classes.yaml \\
         --ckpt ./ckpts/epoch_11 --split val [--out-json ap.json] \\
-        [--model second|pvrcnn|pvrcnn2]
+        [--model second|pvrcnn|pvrcnn2|voxel_rcnn]
 
 ``--ckpt`` loads a checkpoint this package trained (``train_cli``);
 ``--weights`` loads the ``.npz`` export of a JAX checkpoint
@@ -19,7 +19,11 @@ init is stage 1's, as the JAX CLI's), ``pvrcnn2`` the two-stage inference,
 which a stage-1 tree cannot run (it raises), with its
 grid points drawn from a CPU generator re-seeded 0 for every batch (the
 JAX CLI passes ``PRNGKey(0)`` to every batch), so the CPU and the card
-draw the same. Inference runs under ``torch.no_grad()`` in the config's
+draw the same. ``--model voxel_rcnn`` runs Voxel R-CNN's two-stage
+inference (``models/voxel_rcnn.py``) on the config's geometry, anchors and
+thresholds with its own architecture (``voxel_rcnn_config``), from a
+``--ckpt`` tree or fresh weights (``init_voxel_rcnn`` from a CPU generator
+seeded 0). Inference runs under ``torch.no_grad()`` in the config's
 ``compute_dtype``, on ``cuda`` unless ``--device cpu``.
 """
 
@@ -37,7 +41,9 @@ from vision3d_tpu_torch.inference_cli import DEFAULT_WEIGHTS, load_state_dict
 def infer_batch(model, model_kind, points, num_points, anchors):
     """Detections of one batch, by the inference ``model_kind`` names."""
     with torch.no_grad():
-        if model_kind == "pvrcnn2":
+        if model_kind == "voxel_rcnn":
+            det, _ = model.inference_two_stage(points, num_points, anchors)
+        elif model_kind == "pvrcnn2":
             det, _ = model.inference_two_stage(
                 points, num_points, anchors,
                 generator=torch.Generator().manual_seed(0))
@@ -51,8 +57,8 @@ def run_eval(cfg, model, anchors, dataset, batch_size=8, verbose=True,
     """Detections of ``model`` (eval mode, on its device) over ``dataset``
     -> (AP table {class -> {easy/moderate/hard -> AP}}, timing dict with
     the frames evaluated and the seconds the loop took). ``model_kind``:
-    "second", "pvrcnn" (a PV_RCNN's one-stage inference) or "pvrcnn2"
-    (its two-stage inference)."""
+    "second", "pvrcnn" (a PV_RCNN's one-stage inference), "pvrcnn2"
+    (its two-stage inference) or "voxel_rcnn"."""
     from vision3d_tpu_torch.data.loader import DataLoader
     from vision3d_tpu_torch.eval.kitti_eval import evaluate_all
     from vision3d_tpu_torch.models.head import extract_detections
@@ -119,7 +125,7 @@ def main(argv=None):
     add_data_args(ap)
     ap.add_argument("--out-json", default=None)
     ap.add_argument("--model", default="second",
-                    choices=["second", "pvrcnn", "pvrcnn2"])
+                    choices=["second", "pvrcnn", "pvrcnn2", "voxel_rcnn"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -137,6 +143,15 @@ def main(argv=None):
             args.weights = str(DEFAULT_WEIGHTS)
         model, anchors = create_second(cfg, device=device,
                                        state_dict=load_state_dict(args))
+    elif args.model == "voxel_rcnn":
+        from vision3d_tpu_torch.models.voxel_rcnn import create_voxel_rcnn, voxel_rcnn_config
+
+        if args.weights:
+            raise ValueError("--model voxel_rcnn takes a --ckpt tree or fresh weights: "
+                             "the JAX package has no Voxel R-CNN to export")
+        cfg = voxel_rcnn_config(cfg)
+        model, anchors = create_voxel_rcnn(cfg, device=device,
+                                           state_dict=load_state_dict(args) if args.ckpt else None)
     else:
         from vision3d_tpu_torch import convert
         from vision3d_tpu_torch.models.pvrcnn import create_pvrcnn, has_stage2

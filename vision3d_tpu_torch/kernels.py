@@ -28,7 +28,7 @@ PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("zwin_conv", "gather_gemm", "gather_rows", "column_conv",
-           "zwin_align_v1", "zwin_align_v3", "ball_query")
+           "zwin_align_v1", "zwin_align_v3", "ball_query", "voxel_query")
 SOURCES = {"zwin_align_v1": "zwin_align_gemm", "zwin_align_v3": "zwin_align_gemm"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")

@@ -1,7 +1,12 @@
-"""2D BEV RPN backbone (port of ``vision3d_tpu/models/rpn.py``).
+"""2D BEV backbones: the RPN (port of ``vision3d_tpu/models/rpn.py``) and
+Voxel R-CNN's ``BaseBEVBackbone``.
 
-One stride-1 3x3 Conv-BN-ReLU plus five more ("down block"), then a 1x1
-Conv-BN-ReLU ("up block"); 128 channels, BN eps 1e-3. NCHW in, NCHW out.
+``RPN``: one stride-1 3x3 Conv-BN-ReLU plus five more ("down block"), then
+a 1x1 Conv-BN-ReLU ("up block"); 128 channels, BN eps 1e-3.
+``BaseBEVBackbone`` (OpenPCDet ``backbones_2d/base_bev_backbone.py``, the
+port's own: the JAX package has none): blocks at strides 1 and 2 of a 3x3
+Conv-BN-ReLU then five more, each upsampled by a transposed conv + BN +
+ReLU back to stride 1 and concatenated. NCHW in, NCHW out.
 """
 
 import torch
@@ -46,9 +51,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvBNReLU(nn.Sequential):
-    def __init__(self, cin: int, cout: int, kernel: int = 3):
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__(
-            nn.Conv2d(cin, cout, kernel, padding=kernel // 2, bias=False),
+            nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False),
             BatchNorm2d(cout, eps=1e-3, momentum=0.01),
             nn.ReLU(inplace=True),
         )
@@ -61,3 +66,35 @@ class RPN(nn.Sequential):
         layers += [ConvBNReLU(c_down, c_down) for _ in range(blocks)]
         layers.append(ConvBNReLU(c_down, c_up, kernel=1))
         super().__init__(*layers)
+
+
+class BaseBEVBackbone(nn.Module):
+    """Blocks ``i`` of ``1 + layer_nums[i]`` 3x3 Conv-BN-ReLU, the first at
+    ``strides[i]`` (OpenPCDet's zero pad 1 then an unpadded conv: the same
+    as padding 1), each block's output upsampled by a ``ConvTranspose2d``
+    of kernel and stride ``up_strides[i]`` + BN + ReLU (``deblocks``) and
+    the upsampled maps concatenated. BN eps 1e-3, momentum 0.01, as the
+    published config builds them. The defaults are Voxel R-CNN's
+    (``voxel_rcnn_car.yaml``): 64 and 128 wide, up to 128 + 128."""
+
+    def __init__(self, c_in: int, layer_nums=(5, 5), strides=(1, 2), filters=(64, 128),
+                 up_strides=(1, 2), up_filters=(128, 128)):
+        super().__init__()
+        self.blocks = nn.ModuleList()
+        self.deblocks = nn.ModuleList()
+        cin = c_in
+        for n, s, c, us, uc in zip(layer_nums, strides, filters, up_strides, up_filters):
+            self.blocks.append(nn.Sequential(ConvBNReLU(cin, c, stride=s),
+                                             *[ConvBNReLU(c, c) for _ in range(n)]))
+            self.deblocks.append(nn.Sequential(
+                nn.ConvTranspose2d(c, uc, us, stride=us, bias=False),
+                BatchNorm2d(uc, eps=1e-3, momentum=0.01), nn.ReLU(inplace=True)))
+            cin = c
+        self.c_out = sum(up_filters)
+
+    def forward(self, x):
+        ups = []
+        for block, deblock in zip(self.blocks, self.deblocks):
+            x = block(x)
+            ups.append(deblock(x))
+        return torch.cat(ups, dim=1)

@@ -55,9 +55,14 @@ class Second(nn.Module):
             raise ValueError(f"unknown sparse_backend {cfg.sparse_backend!r}")
         self.cfg = cfg
         self.cnn = CNN_FACTORY[cfg.cnn](cfg)
-        c = cfg.proposal.c_in
-        self.rpn = RPN(c_in=c, c_down=c, c_up=c)
+        self.rpn = self.bev_backbone()
         self.head = ProposalHead(cfg)
+
+    def bev_backbone(self) -> nn.Module:
+        """The BEV backbone between the middle extractor and the head: the
+        RPN, ``proposal.c_in`` wide."""
+        c = self.cfg.proposal.c_in
+        return RPN(c_in=c, c_down=c, c_up=c)
 
     def trunk(self, points, num_points, need_scales: bool = False):
         """Voxelize, middle extractor, RPN, head: (RPN output (B, C, ny, nx),
@@ -101,7 +106,8 @@ def init_second(model: Second, generator: torch.Generator):
     """Fresh weights as the JAX package initialises them, drawn from
     ``generator`` (a CPU generator; call before moving the model):
     sparse convs ``variance_scaling(2, fan_out, normal)`` (std
-    sqrt(2/Cout)), RPN convs xavier-normal as flax draws it (a normal cut
+    sqrt(2/Cout)), RPN (or BEV backbone) convs and transposed convs
+    xavier-normal as flax draws it (a normal cut
     at two of its own std and widened so the std stays sqrt(2/fan_avg):
     every weight within 2.2737 std), head kernels normal(0.01), the cls
     bias at the focal prior -log((1-p)/p) with p = 0.01
@@ -112,8 +118,10 @@ def init_second(model: Second, generator: torch.Generator):
         for conv in list(model.cnn.subm) + list(model.cnn.down):
             conv.weight.normal_(0.0, math.sqrt(2.0 / conv.weight.shape[1]),
                                 generator=generator)
-        for block in model.rpn:
-            w = block[0].weight                       # (Cout, Cin, kh, kw)
+        for conv in model.rpn.modules():
+            if not isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
+                continue
+            w = conv.weight                   # (Cout, Cin, kh, kw) or (Cin, Cout, kh, kw)
             fan = (w.shape[0] + w.shape[1]) * w.shape[2] * w.shape[3]
             s = math.sqrt(2.0 / fan) / _TRUNC_STD
             torch.nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s,

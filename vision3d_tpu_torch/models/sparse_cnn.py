@@ -475,7 +475,11 @@ def to_global(st: SparseTensor, cfg: Config, stride: int):
 
 class SpMiddleFHD(nn.Module):
     """Reference channel plan: per block 2-3 subm convs then a strided
-    conv; 4 -> 16 -> 32 -> 64 -> 64."""
+    conv; 4 -> 16 -> 32 -> 64 -> 64. ``block_scales``: the scales
+    ``need_scales`` returns are each block's submanifold output, not the
+    input and the strided convs' outputs."""
+
+    block_scales = False
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -511,6 +515,14 @@ class SpMiddleFHD(nn.Module):
                                 out_col_cap=c.stage_column_capacity(4))),
         ]
 
+    def bev_channels(self) -> int:
+        """Width of the BEV map ``to_bev`` makes: the last stage's features
+        times its z extent."""
+        grid = self.cfg.grid_shape_zyx
+        for _, spec in self.block_specs():
+            grid = sp.out_grid_shape(grid, spec["kernel"], spec["stride"], spec["pad"])
+        return self.block_specs()[-1][1]["features"] * grid[0]
+
     def forward(self, st, need_scales: bool = False):
         """st: a SparseTensor or a ColumnTensor. Returns (bev (B, H, W,
         C*D), diagnostics {name: (B,) int32}). The stages from
@@ -527,7 +539,9 @@ class SpMiddleFHD(nn.Module):
 
         ``need_scales`` (PV-RCNN's set abstraction) returns (bev,
         diagnostics, scales) with the four SparseTensors at strides 1, 2, 4
-        and 8: the input, then the outputs of stages 0-2. A ColumnTensor
+        and 8: the input, then the outputs of stages 0-2; with
+        ``block_scales``, each block's output after its submanifold convs,
+        on the same sites. A ColumnTensor
         scale i is read as voxels at ``cfg.stage_voxel_capacity(i)``, a
         dense stage's output at its compact key set (on the column backend
         the cutover's columns at that capacity, then each strided conv's
@@ -537,7 +551,7 @@ class SpMiddleFHD(nn.Module):
                       else cfg.dense_from_stage)
         diag = {}
         x = st
-        scales = [st]
+        scales = [] if self.block_scales else [st]
         li = 0
         for si, (chans, spec) in enumerate(self.block_specs()):
             if si >= dense_from and isinstance(x, SparseTensor) and self.training:
@@ -573,19 +587,21 @@ class SpMiddleFHD(nn.Module):
             for _ in chans:
                 x = self.subm[li](x, rb)
                 li += 1
+            if need_scales and self.block_scales:
+                scales.append(x)
             if isinstance(x, ColumnTensor):
                 x, diag[f"stage{si + 1}_columns_dropped"] = \
                     self.down[si].forward_columns(x)
             else:
                 x = self.down[si](x, plan)
-            if need_scales:
+            if need_scales and not self.block_scales:
                 scales.append(x)
         if not need_scales:
             return to_bev(x), diag
         scales = [s.to_voxel_sparse(cfg.stage_voxel_capacity(i))
                   if isinstance(s, ColumnTensor)
                   else s.to_voxel_sparse() if isinstance(s, DenseTensor) else s
-                  for i, s in enumerate(scales[:-1])]
+                  for i, s in enumerate(scales[:4])]
         return to_bev(x), diag, scales
 
 
@@ -597,4 +613,25 @@ class SpMiddleFHDLite(SpMiddleFHD):
         return [([], down) for _, down in super().block_specs()]
 
 
-CNN_FACTORY = dict(SpMiddleFHD=SpMiddleFHD, SpMiddleFHDLite=SpMiddleFHDLite)
+class VoxelBackBone8x(SpMiddleFHD):
+    """Voxel R-CNN's 3D backbone (OpenPCDet ``backbones_3d/spconv_backbone.py``
+    ``VoxelBackBone8x``, the port's own): two submanifold convs a block,
+    16 -> 32 -> 64 -> 64, and a ``conv_out`` of 128 channels, kernel (3, 1, 1)
+    and stride (2, 1, 1), so the BEV map is 256 wide. OpenPCDet's
+    ``conv_input`` and ``conv1`` are the first block's two submanifold convs;
+    its BN eps 1e-3 and momentum 0.01 are the blocks' own. The same plans,
+    kernels and representations as ``SpMiddleFHD``. Its scales are
+    ``x_conv1``-``x_conv4``: each block's output after its submanifold
+    convs."""
+
+    block_scales = True
+
+    def block_specs(self):
+        widths = ([16, 16], [32, 32], [64, 64], [64, 64])
+        downs = [dict(spec, features=f) for (_, spec), f in
+                 zip(super().block_specs(), (32, 64, 64, 128))]
+        return list(zip(widths, downs))
+
+
+CNN_FACTORY = dict(SpMiddleFHD=SpMiddleFHD, SpMiddleFHDLite=SpMiddleFHDLite,
+                   VoxelBackBone8x=VoxelBackBone8x)

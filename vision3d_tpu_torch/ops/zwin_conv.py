@@ -53,20 +53,50 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VP] * 5 + [_CI] * 7 + [_VP]
 
 
+def embed_333(start, pattern, weight, kernel, n):
+    """A z-window rulebook and weight of kernel (3, ky, kx), ky and kx 1 or
+    3, as those of the (3, 3, 3) conv that the kernel runs: each of the
+    rulebook's ky*kx windows goes to its place in the centred 3 x 3 of BEV
+    offsets, the others are misses (start ``n``, pattern 0), and the
+    weight's taps go to the same places among 27, the others zero. The
+    conv is the same: a miss reads no row."""
+    kz, ky, kx = kernel
+    if kz != 3 or ky not in (1, 3) or kx not in (1, 3):
+        raise ValueError(f"zwin_conv: kernel {tuple(kernel)} is not (3, 1|3, 1|3)")
+    k2 = ky * kx
+    b, q = start.shape
+    if q % k2:
+        raise ValueError(f"zwin_conv: start {tuple(start.shape)} is not (B, M*{k2})")
+    m = q // k2
+    oy, ox = (3 - ky) // 2, (3 - kx) // 2
+    place = [(oy + j // kx) * 3 + ox + j % kx for j in range(k2)]
+    s9 = torch.full((b, m, 9), n, dtype=start.dtype, device=start.device)
+    p9 = torch.zeros((b, m, 9), dtype=pattern.dtype, device=pattern.device)
+    s9[..., place] = start.reshape(b, m, k2)
+    p9[..., place] = pattern.reshape(b, m, k2)
+    cin, cout = weight.shape[0] // (kz * k2), weight.shape[1]
+    w27 = weight.new_zeros((3, 9, cin, cout))
+    w27[:, place] = weight.reshape(kz, k2, cin, cout)
+    return s9.reshape(b, m * 9), p9.reshape(b, m * 9), w27.reshape(27 * cin, cout)
+
+
 def zwin_conv(feats, start, pattern, weight, kernel=(3, 3, 3),
               compute_dtype=torch.float32, route=None):
-    """feats (B, N, C); start, pattern (B, M*9) int32 from
-    ``sp.zwin_rulebook``; weight (27*C, Cout). Returns (B, M, Cout) f32.
+    """feats (B, N, C); start, pattern (B, M*K2) int32 from
+    ``sp.zwin_rulebook``; weight (K*C, Cout). Returns (B, M, Cout) f32.
     Inputs are rounded to ``compute_dtype`` (float32 or bfloat16); sums
     are float32. ``route`` (card only) forces a kernel where the
-    comparisons need both; by default ``route_of`` picks it."""
+    comparisons need both; by default ``route_of`` picks it. The kernel
+    runs (3, 3, 3); on the card a (3, 1, 1) conv (SECOND's and
+    ``VoxelBackBone8x``'s last strided conv, sparse where
+    ``dense_from_stage`` is 4) runs as one (``embed_333``)."""
     if feats.device.type == "cpu":
         return sp.conv_zwin_apply(feats, start, pattern, weight, kernel,
                                   compute_dtype)
     if feats.device.type != "cuda":
         raise ValueError(f"zwin_conv: unsupported device {feats.device}")
     if tuple(kernel) != (3, 3, 3):
-        raise ValueError(f"zwin_conv kernel supports (3, 3, 3) only, got {kernel}")
+        start, pattern, weight = embed_333(start, pattern, weight, kernel, feats.shape[1])
     if compute_dtype not in _DTYPES:
         raise TypeError(f"zwin_conv: compute_dtype {compute_dtype} unsupported")
     for name, t in (("start", start), ("pattern", pattern), ("weight", weight)):
