@@ -97,7 +97,13 @@ Phases, each printing lines before the last:
      over the grid points): equal to its plain version on the same card
      tensors, and again with one in-ball source masked out, which must
      fail; kernel and plain CUDA-event medians, the bound, per source
-     (ball_query_ms); (b) at small geometry in float32 with TF32
+     (ball_query_ms); then (d) the fps kernel K3 at the benchmark cell's
+     shape (B 8 x 18,000 points, K 2,048; all valid, and again with every
+     other frame's tail masked out): equal to its plain version on the
+     same card tensors, and run again with one taken point masked out,
+     which must differ; kernel and plain CUDA-event medians, the host's
+     time to enqueue it, the bound, the route and cluster size
+     (fps_phase); (b) at small geometry in float32 with TF32
      off, card against CPU on the same weights and the same CPU-drawn
      grid points: keypoint and ball-query indices (5 sources x 2 radii)
      equal, point features, proposals, refined boxes and scores within
@@ -200,9 +206,10 @@ Phases, each printing lines before the last:
      fail; the p50 of 10 forwards and the peak memory.
 Every PV-RCNN forward or step on the card, in every phase, launches
 ball_query as BALL_QUERIES says (12 a two-stage forward or step, 10 a
-stage-1 step, none for the BEV branch alone or SECOND). The last line is
+stage-1 step, none for the BEV branch alone or SECOND) and fps once
+(point_launches). The last line is
 {"ok": true, "device": {...}}; the one before it lists the kernels as
-JSON (ball_query and voxel_query with their launches per forward and
+JSON (ball_query, voxel_query and fps with their launches per forward and
 their times per query),
 and the one before that is the card's name and power limit from
 nvidia-smi.
@@ -247,7 +254,9 @@ from vision3d_tpu_torch.models.sparse_cnn import (MaskedBatchNorm, SpMiddleFHD,
                                                   to_global)
 from vision3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from vision3d_tpu_torch.ops import voxel_query as vq
-from vision3d_tpu_torch.ops.fps import sample_keypoints
+from vision3d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample_plain,
+                                        sample_keypoints)
+from vision3d_tpu_torch.ops.fps import plan as fps_plan
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops import zwin_conv as zw
@@ -285,6 +294,10 @@ BACKENDS_MAX_BOX, BACKENDS_MAX_SCORE = 0.1, 0.02
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet peaks
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12        # outside the tensor cores
+# conversions between float32 and float64: 16 a clock on an SM (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x the 1.98 GHz boost clock (H100 SXM)
+CVT_PER_S = 16 * 132 * 1.98e9
 # PV-RCNN, card against CPU at small geometry in float32 (phase 8b): sums
 # in other orders (cuDNN and cuBLAS against the CPU's) through the trunk
 # and the point branch; 10x the port-against-JAX bound of the CPU tests
@@ -296,6 +309,15 @@ PV_MODES = ("pvrcnn", "pvrcnn2")
 # ("pvrcnn2"); SECOND and PV-RCNN's one-stage inference (the BEV branch)
 # launch none
 BALL_QUERIES = {"pvrcnn": 10, "pvrcnn2": 12}
+
+
+def point_launches(mode, times=1):
+    """The point branch's kernel launches in ``times`` PV-RCNN forwards or
+    training steps of ``mode``: its ball queries and one fps (the
+    keypoints, on the "reg" route at every size this file runs) each."""
+    return {"ball_query": BALL_QUERIES[mode] * times, "fps": times, "fps.reg": times}
+
+
 # PV-RCNN training, card against CPU at small geometry in float32 (phase
 # 9b): running statistics to 1e-5 of 1 + |value| (the CPU tests' bound
 # against JAX); the other gates are in pvrcnn_training_reference_phase
@@ -1495,7 +1517,7 @@ def pvrcnn_phase(cfg, dev, want, state_dict=None, profile=True):
     synchronised stage split and the ball queries at the forward's shapes
     (``ball_query_rows``)."""
     cfg = pvrcnn_cfg(cfg)
-    want2 = {**want, "ball_query": BALL_QUERIES["pvrcnn2"]}
+    want2 = {**want, **point_launches("pvrcnn2")}
     model, anchors = create_pvrcnn(cfg, device=dev, state_dict=state_dict)
     pts, num = kitti_like_batch(0, BATCH, POINTS)
     points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
@@ -1628,6 +1650,68 @@ def ball_query_phase(model, inter, generator):
                              plain_ms=cuda_ms(lambda: ball_query_plain(xyz, msk, ctr, r, s),
                                               reps=3, warmup=1)))
     return rows
+
+
+def fps_bound_ms(mask, k):
+    """The least time of one sampling: the larger of its distances' six
+    conversions between float32 and float64 each (every valid point
+    against each of the K - 1 centres) at CVT_PER_S, and its bytes (each
+    point's 12 + 1 read once, the indices written once) at the card's
+    bandwidth. Returns (ms, bound by)."""
+    b, n = mask.shape
+    cvt_s = 6 * (k - 1) * int(mask.sum()) / CVT_PER_S
+    bytes_s = (b * n * 13 + b * k * 8) / HBM_BYTES_PER_S
+    return 1e3 * max(cvt_s, bytes_s), "conversions" if cvt_s >= bytes_s else "bytes"
+
+
+def fps_phase(dev, k=2048):
+    """Phase 8d: K3 (``ops/fps.furthest_point_sample`` on the card) at the
+    benchmark cell's shape, phase 8's batch (B 8 x 18,000 points, all
+    valid) and K 2,048, then the same clouds with every other frame's last
+    tenth masked out: each equal to the plain version on the same card
+    tensors, and the kernel run again with one taken point masked out,
+    which must differ. Per case: CUDA-event medians of kernel and plain,
+    the host's time to enqueue one call, the bound, the route and cluster
+    size (``ops/fps.plan``)."""
+    pts, _ = kitti_like_batch(0, BATCH, POINTS)
+    xyz = torch.from_numpy(np.ascontiguousarray(pts[..., :3])).to(dev)
+    full = torch.ones((BATCH, POINTS), dtype=torch.bool, device=dev)
+    tails = full.clone()
+    tails[1::2, POINTS - POINTS // 10:] = False
+    rows = []
+    for name, mask in (("all valid", full), ("padded tails", tails)):
+        got = furthest_point_sample(xyz, mask, k)
+        ref = furthest_point_sample_plain(xyz, mask, k)
+        check(torch.equal(got, ref), f"fps {name}: the kernel differs from the plain version")
+        broken_mask = mask.clone()
+        broken_mask[0, ref[0, k // 2]] = False
+        check(not torch.equal(furthest_point_sample(xyz, broken_mask, k), ref),
+              f"fps {name}: a taken point masked out passed the check")
+        route, cluster = fps_plan(BATCH, POINTS, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            furthest_point_sample(xyz, mask, k)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 10
+        torch.cuda.synchronize()
+        bound, by = fps_bound_ms(mask, k)
+        rows.append(dict(case=name, B=BATCH, N=POINTS, valid=int(mask.sum()), K=k,
+                         route=route, cluster=cluster, bound_ms=bound, bound_by=by,
+                         host_ms=host_ms,
+                         ms=cuda_ms(lambda: furthest_point_sample(xyz, mask, k)),
+                         plain_ms=cuda_ms(lambda: furthest_point_sample_plain(xyz, mask, k),
+                                          reps=3, warmup=1)))
+    return rows
+
+
+def print_fps(rows):
+    """Phase 8d's lines."""
+    for r in rows:
+        print(f"fps {r['case']} (B {r['B']}, N {r['N']}, {r['valid']} valid, K {r['K']}; "
+              f"route {r['route']}, cluster {r['cluster']}): equal to the plain version, a "
+              f"masked-out point caught; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+              f"ms, enqueue {r['host_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
 
 
 def voxel_query_bound_ms(vmap, grid, points, lo, step, ranges, radius, nsample, voxels):
@@ -1841,6 +1925,7 @@ def pvrcnn_reference_phase(dev, backend="voxel"):
         kernel = "column_conv" if backend == "column" else "zwin_conv"
         # the forward's ball queries and the ten above
         want = {} if d.type == "cpu" else {kernel: 6, f"{kernel}.fma": 6,
+                                           **point_launches("pvrcnn2"),
                                            "ball_query": BALL_QUERIES["pvrcnn2"] + 10}
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"pvrcnn reference on {d.type}: launches {launched}")
@@ -1884,7 +1969,7 @@ def pvrcnn_cli_phase(shapes):
         val, data = synthetic_set(tmp, golden)
         batches = -(-len(val) // BATCH)
         want = {**launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
-                              batches), "ball_query": BALL_QUERIES["pvrcnn2"] * batches}
+                              batches), **point_launches("pvrcnn2", batches)}
         (table, timing), launches = counted(lambda: eval_cli.main(
             data + ["--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
         check(timing["frames"] == len(val) and (tmp / "ap.json").exists(),
@@ -1958,7 +2043,7 @@ def pvrcnn_training_phase(cfg, dev, runs, warmup=PV_TRAIN_WARMUP, timed=PV_TRAIN
         gathers, dx = [], {}
         with checked_gathers(gathers), counted_dx(dx):
             (state, first), launches = counted(
-                lambda: step(state, batch), {**expected, "ball_query": BALL_QUERIES[mode]})
+                lambda: step(state, batch), {**expected, **point_launches(mode)})
         check(len(gathers) == expected["gather_rows"],
               f"{name}: {len(gathers)} gathers checked")
         check(dx["launches"] == {"column_conv": n_dx, "column_conv.mma": n_dx,
@@ -2119,7 +2204,7 @@ def pvrcnn_training_reference_phase(dev, backend="voxel", modes=PV_MODES):
                         point_indices([]) as indices:
                     state, losses = step(state, _to_device(b, d))
                 want = {} if d.type == "cpu" else {**float32_launches(step_launches),
-                                                   "ball_query": BALL_QUERIES[mode]}
+                                                   **point_launches(mode)}
                 launched = {k: n for k, n in zw.LAUNCHES.items() if n}
                 check(launched == want, f"{mode} reference on {d.type}: launches {launched}")
                 runs.append(dict(
@@ -2204,7 +2289,7 @@ def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
                 data + ["--model", mode, "--batch-size", str(BATCH), "--workers", "2",
                         "--epochs", "1", "--ckpt-dir", str(tmp / f"ck_{mode}"),
                         "--metrics-jsonl", str(tmp / f"{mode}.jsonl")]),
-                {**want_step, "ball_query": BALL_QUERIES[mode] * steps})
+                {**want_step, **point_launches(mode, steps)})
             check(len(recs) == 1 and recs[0]["steps"] == steps
                   and all(np.isfinite(recs[0]["losses"])), f"train_cli {mode}: {recs}")
             ckpt = recs[0]["checkpoint"]
@@ -2213,8 +2298,8 @@ def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
             (table, timing), elaunch = counted(lambda: eval_cli.main(
                 data + ["--model", mode, "--ckpt", ckpt,
                         "--out-json", str(tmp / f"ap_{mode}.json")]),
-                {**want_eval, "ball_query": BALL_QUERIES["pvrcnn2"] * batches
-                 if mode == "pvrcnn2" else 0})
+                {**want_eval, **(point_launches("pvrcnn2", batches)
+                                 if mode == "pvrcnn2" else {})})
             check(timing["frames"] == len(val), f"eval_cli {mode}: {timing['frames']} frames")
             check(all(np.isfinite(v) for row in table.values() for v in row.values()),
                   f"eval_cli {mode} --ckpt: {table}")
@@ -2506,8 +2591,8 @@ def train_forms_cli_phase(shapes, col_rows, names):
             steps = 16 // batch
             want = {k: v * steps for k, v in float32_launches(TRAIN_FORMS[form][1]).items()}
             if "pvrcnn2" in extra:
-                want["ball_query"] = BALL_QUERIES["pvrcnn2"] * steps
-                want_eval = {**want_eval, "ball_query": BALL_QUERIES["pvrcnn2"] * batches}
+                want.update(point_launches("pvrcnn2", steps))
+                want_eval = {**want_eval, **point_launches("pvrcnn2", batches)}
             recs, launches = counted(lambda: train_cli.main(
                 args + extra + ["--batch-size", str(batch), "--workers", "2", "--epochs", "1",
                                 "--ckpt-dir", str(tmp / f"ck_{name}"),
@@ -2920,6 +3005,8 @@ def main():
     print(f"ball_query_ms per source (both radii, CUDA events): {bq_ms}; per two-stage "
           f"forward: kernel {sum(r['ms'] for r in bq_rows):.3f} ms, plain "
           f"{sum(r['plain_ms'] for r in bq_rows):.3f} ms", flush=True)
+    fps_rows = fps_phase(dev)
+    print_fps(fps_rows)
     with full_float32():
         pvref = pvrcnn_reference_phase(dev)
     gc.collect()
@@ -3083,7 +3170,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     benches = bench_phase({"zwin": want_zwin, "column": want_col, "train": expected,
-                           "pvrcnn2": {**want_zwin, "ball_query": BALL_QUERIES["pvrcnn2"]}})
+                           "pvrcnn2": {**want_zwin, **point_launches("pvrcnn2")}})
     for label, (_, per) in benches.items():
         print(f"{label}: launches per {'step' if 'train' in label else 'forward'} {per}",
               flush=True)
@@ -3304,6 +3391,25 @@ def main():
          # no PyTorch call takes the first nsample in-ball points by index
          "library_ms": None,
          "shapes": bq_rows},
+        {"name": "fps", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/fps.cu",
+         # XLA code in the JAX package (vision3d_tpu/ops/fps.py)
+         "replaces": None,
+         "launches": pv["launches"]["fps"],
+         "launches_by_route": {r: pv["launches"][f"fps.{r}"] for r in kernels.ROUTES["fps"]},
+         "launches_pvrcnn_column_per_forward": pvc["launches"]["fps"],
+         "launches_eval_cli_pvrcnn2_per_batch": pvcli["per_batch"]["fps"],
+         "launches_pvrcnn_train_per_step": {m: r["launches"]["fps"] for m, r in pvt.items()},
+         "launches_train_cli_pvrcnn_per_step": {m: r["train_per_step"]["fps"]
+                                                for m, r in pvtcli.items()},
+         "launches_bench_pvrcnn2_per_forward": benches["bench pvrcnn2"][1]["fps"],
+         "launches_bench_second_per_forward": benches["bench second"][1].get("fps", 0),
+         # the cell's shape, all valid
+         "ms": fps_rows[0]["ms"], "plain_ms": fps_rows[0]["plain_ms"],
+         "bound_ms": fps_rows[0]["bound_ms"], "bound_by": fps_rows[0]["bound_by"],
+         # no PyTorch call samples furthest points
+         "library_ms": None,
+         "shapes": fps_rows},
     ] + [
         {"name": f"zwin_align_{v}", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",

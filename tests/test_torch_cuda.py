@@ -1,5 +1,5 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
-column_conv, zwin_align_v1, zwin_align_v3, ball_query, voxel_query) against their plain
+column_conv, zwin_align_v1, zwin_align_v3, ball_query, voxel_query, fps) against their plain
 PyTorch versions, on the card, also inside the training autograd functions
 (SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), the column scales'
 conversions' backward, PV-RCNN's inference and training on both backends
@@ -16,6 +16,7 @@ import torch
 
 from vision3d_tpu_torch.ops import column_conv as tcc
 from vision3d_tpu_torch.ops import column_sparse as tcsp
+from vision3d_tpu_torch.ops import fps as tfps
 from vision3d_tpu_torch.ops import sparse as tsp
 from vision3d_tpu_torch.ops import zwin_conv as tzw
 from vision3d_tpu_torch.ops.column_conv import column_conv
@@ -1090,10 +1091,9 @@ def test_ball_query_kernel_rejects_bad_input(cuda_device):
     assert bq.LAUNCHES["ball_query"] == before
 
 
-def test_ball_query_launches_per_forward(cuda_device):
-    """12 ball_query launches a PV-RCNN two-stage forward (five sources x
-    two radii, the grid pool's two), none for its BEV branch alone or for
-    SECOND, at small geometry on the card."""
+def _point_launches(dev):
+    """The launches of each kernel in one forward of PV-RCNN's two stages,
+    of its BEV branch alone and of SECOND, at small geometry on the card."""
     import sys
     from pathlib import Path
 
@@ -1107,9 +1107,9 @@ def test_ball_query_launches_per_forward(cuda_device):
     cfg = chip_smoke.pvrcnn_cfg(chip_smoke.small_geometry_cfg())
     pts, num = chip_smoke.crop_to_grid(cfg, kitti_like_batch(1, 2, 60000)[0])
     pts, num = pts[:, :chip_smoke.PV_REF_POINTS], np.minimum(num, chip_smoke.PV_REF_POINTS)
-    points, num_t = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(num).to(cuda_device)
-    model, anchors = create_pvrcnn(cfg, device=cuda_device)
-    second, _ = create_second(cfg, device=cuda_device)
+    points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
+    model, anchors = create_pvrcnn(cfg, device=dev)
+    second, _ = create_second(cfg, device=dev)
     runs = {"pvrcnn2": lambda: model.inference_two_stage(
                 points, num_t, anchors, generator=torch.Generator().manual_seed(0)),
             "pvrcnn_bev": lambda: model.inference(points, num_t, anchors),
@@ -1120,10 +1120,152 @@ def test_ball_query_launches_per_forward(cuda_device):
             kernels.reset_launches()
             fn()
             torch.cuda.synchronize()
-            launched[name] = kernels.LAUNCHES["ball_query"]
-    assert launched == {"pvrcnn2": chip_smoke.BALL_QUERIES["pvrcnn2"], "pvrcnn_bev": 0,
-                        "second": 0}
+            launched[name] = dict(kernels.LAUNCHES)
+    return launched, chip_smoke
+
+
+def test_ball_query_launches_per_forward(cuda_device):
+    """12 ball_query launches a PV-RCNN two-stage forward (five sources x
+    two radii, the grid pool's two), none for its BEV branch alone or for
+    SECOND, at small geometry on the card."""
+    launched, chip_smoke = _point_launches(cuda_device)
+    assert {k: v["ball_query"] for k, v in launched.items()} == {
+        "pvrcnn2": chip_smoke.BALL_QUERIES["pvrcnn2"], "pvrcnn_bev": 0, "second": 0}
     assert chip_smoke.BALL_QUERIES["pvrcnn2"] == 12
+
+
+# ------------------------------------------- furthest point sampling (K3)
+
+def _fps_equal(xyz, mask, k):
+    """K3's indices against the plain version's on the same card tensors,
+    bit for bit; one launch counted, on the route ``plan`` names. Returns
+    (indices, route, cluster size)."""
+    b, n = mask.shape
+    route, cluster = tfps.plan(b, n, xyz.device)
+    before = (tfps.LAUNCHES["fps"], tfps.LAUNCHES[f"fps.{route}"])
+    idx = tfps.furthest_point_sample(xyz, mask, k)
+    torch.cuda.synchronize()
+    assert (tfps.LAUNCHES["fps"], tfps.LAUNCHES[f"fps.{route}"]) == (before[0] + 1,
+                                                                      before[1] + 1)
+    ref = tfps.furthest_point_sample_plain(xyz, mask, k)
+    assert idx.dtype == torch.int64 and tuple(idx.shape) == (b, k)
+    assert torch.equal(idx, ref)
+    return ref, route, cluster
+
+
+def _fps_clouds(dev, seed, b, n, valid_share=1.0):
+    """``b`` seeded KITTI-like clouds of ``n`` rows (duplicated rows where
+    a frame is padded by resampling); every other frame keeps only its first
+    ``valid_share`` of rows valid, the tail zeros."""
+    from vision3d_tpu_torch.synthetic import kitti_like_batch
+
+    rng = np.random.default_rng(seed)
+    pts, _ = kitti_like_batch(seed, b, n)
+    xyz = np.ascontiguousarray(pts[..., :3])
+    mask = np.ones((b, n), bool)
+    for i in range(1, b, 2):
+        keep = int(n * valid_share) - int(rng.integers(0, max(1, n // 10)))
+        mask[i, max(1, keep):] = False
+        xyz[i, max(1, keep):] = 0.0
+    return torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+
+
+def test_fps_kernel_matches_plain_cell_shape(cuda_device):
+    """The benchmark cell's shape: B 8, N 18,000, K 2,048, KITTI-like
+    clouds, four of them with padded tails: bit-equal, 2,048 distinct
+    keypoints a frame."""
+    xyz, mask = _fps_clouds(cuda_device, 8, 8, 18000, valid_share=0.9)
+    idx, route, _ = _fps_equal(xyz, mask, 2048)
+    assert route == "reg"
+    assert all(len(torch.unique(r)) == 2048 for r in idx)
+    assert bool(mask.gather(1, idx).all())
+
+
+@pytest.mark.parametrize("b,n,k", [(2, 1, 4), (3, 100, 50), (2, 255, 255), (4, 5801, 300),
+                                   (2, 4097, 64), (1, 18000, 2048), (3, 500, 700)])
+def test_fps_kernel_any_size(b, n, k, cuda_device):
+    """N of one point, under one block's threads, off every slice and
+    thread count; B 1 at the cell's N (the widest cluster); K above the
+    valid count (the first valid point repeats): bit-equal."""
+    rng = np.random.default_rng(b * 100000 + n + k)
+    xyz = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+    mask = rng.uniform(size=(b, n)) < 0.8
+    t = [torch.from_numpy(a).to(cuda_device) for a in (xyz, mask)]
+    idx, _, cluster = _fps_equal(*t, k)
+    if b == 1:
+        assert cluster == tfps.plan(1, n, cuda_device)[1] >= tfps.plan(8, n, cuda_device)[1]
+    if k > n:
+        first = mask.argmax(1)
+        assert (idx[:, -1].cpu().numpy() == first).all()
+
+
+def test_fps_kernel_edge_clouds(cuda_device):
+    """One batch of: a cloud with no valid point (every index 0); every
+    point twice (point i + 1500 is point i) on a 0.1 m lattice, so many
+    running distances tie (the lower index wins); valid points only from
+    row 777 on (the first keypoint 777); K 512 above the 400 valid points
+    of the last cloud (repeats)."""
+    rng = np.random.default_rng(21)
+    n = 3000
+    xyz = rng.uniform(-5, 5, (4, n, 3)).astype(np.float32)
+    xyz[1, 1500:] = xyz[1, :1500] = np.round(xyz[1, :1500], 1)
+    mask = np.ones((4, n), bool)
+    mask[0] = False
+    mask[2, :777] = False
+    mask[3] = False
+    mask[3, rng.choice(n, 400, replace=False)] = True
+    t = [torch.from_numpy(a).to(cuda_device) for a in (xyz, mask)]
+    idx, _, _ = _fps_equal(*t, 512)
+    idx = idx.cpu().numpy()
+    assert (idx[0] == 0).all() and idx[2, 0] == 777
+    assert (idx[1] < 1500).all() and len(set(idx[3])) == 400
+
+
+@pytest.mark.parametrize("b,n,route", [(8, 18000, "reg"), (64, 4000, "reg"),
+                                       (200, 10000, "smem"), (200, 20000, "global")])
+def test_fps_kernel_routes_and_clusters(b, n, route, cuda_device):
+    """Batches large enough to shrink the cluster (every cloud's cluster
+    resident at once), down to one block a cloud, whose slice then leaves
+    the registers for shared memory, then device memory: bit-equal, on the
+    route named, with a smaller cluster than the cell's."""
+    xyz, mask = _fps_clouds(cuda_device, b + n, b, n, valid_share=0.95)
+    _, got_route, cluster = _fps_equal(xyz, mask, 2048 if b == 8 else 64)
+    assert got_route == route
+    if b > 8:
+        assert cluster < tfps.plan(8, 18000, cuda_device)[1]
+
+
+def test_fps_kernel_rejects_bad_input(cuda_device):
+    xyz, mask = _fps_clouds(cuda_device, 3, 2, 1000)
+    before = tfps.LAUNCHES["fps"]
+    with pytest.raises(TypeError):
+        tfps.furthest_point_sample(xyz.double(), mask, 16)
+    with pytest.raises(TypeError):
+        tfps.furthest_point_sample(xyz, mask.to(torch.uint8), 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz[..., :2], mask, 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz, mask[:, :999], 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(torch.stack([xyz, xyz], -1)[..., 0], mask, 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz, torch.stack([mask, mask], -1)[..., 0], 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz, mask.cpu(), 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz.cpu(), mask, 16)
+    with pytest.raises(ValueError):
+        tfps.furthest_point_sample(xyz, mask, 0)
+    assert tfps.LAUNCHES["fps"] == before
+
+
+def test_fps_launches_per_forward(cuda_device):
+    """One fps launch a PV-RCNN two-stage forward (its keypoints), none for
+    its BEV branch alone or for SECOND, at small geometry on the card."""
+    launched, _ = _point_launches(cuda_device)
+    assert {k: v["fps"] for k, v in launched.items()} == {
+        "pvrcnn2": 1, "pvrcnn_bev": 0, "second": 0}
+    assert launched["pvrcnn2"]["fps.reg"] == 1
 
 
 # ------------------------------------------------------------ voxel query (K2)

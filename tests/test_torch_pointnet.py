@@ -22,11 +22,12 @@ from vision3d_tpu.models.pvrcnn import bev_bilinear_gather as j_bev_gather
 from vision3d_tpu.ops.ball_query import ball_query as j_ball_query
 from vision3d_tpu.ops.ball_query import group_features as j_group_features
 from vision3d_tpu.ops.fps import sample_keypoints as j_sample_keypoints
-from vision3d_tpu_torch import convert
+from vision3d_tpu_torch import convert, kernels
 from vision3d_tpu_torch.models.pointnet import SetAbstractionMSG
 from vision3d_tpu_torch.models.pvrcnn import bev_bilinear_gather
 from vision3d_tpu_torch.ops.ball_query import ball_query, group_features
-from vision3d_tpu_torch.ops.fps import furthest_point_sample, sample_keypoints
+from vision3d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample_plain,
+                                        sample_keypoints)
 from vision3d_tpu_torch.synthetic import kitti_like_points
 
 from torch_parity import port_cfg
@@ -52,24 +53,58 @@ def _j_fps(xyz, mask, k):
     return np.asarray(kp), np.asarray(idx)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_fps_indices_equal_jax(seed):
+@pytest.mark.parametrize("case", [0, 1, "ties"])
+def test_fps_indices_equal_jax(case):
     """All valid; 40 valid of 600 with K = 64 (the loop repeats points at
-    distance 0); none valid (all indices 0); valid points not first."""
-    xyz = _clouds(seed)
+    distance 0); none valid (all indices 0); valid points not first. In the
+    "ties" case every point appears twice (point i + 300 is point i) and the
+    last cloud is the tight cluster, rounded to 0.1 m (many equal points):
+    equal running distances go to the lower index."""
+    ties = case == "ties"
+    xyz = _clouds(0, 300) if ties else _clouds(case)
+    if ties:
+        xyz = np.concatenate([xyz, xyz], axis=1)
     n = xyz.shape[1]
     mask = np.ones((3, n), bool)
     mask[1, 40:] = False
     mask[2] = False
-    xyz4 = np.concatenate([xyz, xyz[:1]])
+    xyz4 = np.concatenate([xyz, xyz[2:] if ties else xyz[:1]])
     mask4 = np.concatenate([mask, (np.arange(n) >= 100)[None]])
     jkp, jidx = _j_fps(jnp.asarray(xyz4), jnp.asarray(mask4), 64)
     tidx = furthest_point_sample(torch.from_numpy(xyz4), torch.from_numpy(mask4), 64)
     np.testing.assert_array_equal(tidx.numpy(), jidx)
     assert (jidx[2] == 0).all() and jidx[3, 0] == 100
     assert len(set(jidx[1])) == 40                    # repeats once all are taken
+    if ties:              # each keypoint is the first valid point at its place
+        for c in (0, 3):
+            same = (xyz4[c][:, None] == xyz4[c][None, jidx[c]]).all(-1) & mask4[c][:, None]
+            np.testing.assert_array_equal(same.argmax(0), jidx[c])
+        assert (jidx[0] < 300).all()
     tkp, _ = sample_keypoints(torch.from_numpy(xyz4), torch.from_numpy(mask4), 64)
     np.testing.assert_array_equal(tkp.numpy(), jkp)
+
+
+def test_fps_on_cpu_runs_the_plain_version():
+    """On CPU tensors furthest_point_sample is furthest_point_sample_plain:
+    no kernel launch; malformed input and K < 1 raise, a device that is
+    neither the CPU nor a card raises."""
+    xyz = _clouds(3, 200)
+    mask = np.ones((3, 200), bool)
+    mask[1, 150:] = False
+    before = kernels.LAUNCHES["fps"]
+    got = furthest_point_sample(torch.from_numpy(xyz), torch.from_numpy(mask), 32)
+    want = furthest_point_sample_plain(torch.from_numpy(xyz), torch.from_numpy(mask), 32)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert kernels.LAUNCHES["fps"] == before == 0
+    with pytest.raises(ValueError):
+        furthest_point_sample(torch.from_numpy(xyz), torch.from_numpy(mask), 0)
+    with pytest.raises(ValueError):
+        furthest_point_sample(torch.from_numpy(xyz[..., :2]), torch.from_numpy(mask), 8)
+    with pytest.raises(ValueError):
+        furthest_point_sample(torch.from_numpy(xyz), torch.from_numpy(mask[:, :100]), 8)
+    with pytest.raises(ValueError):
+        furthest_point_sample(torch.from_numpy(xyz).to("meta"),
+                              torch.from_numpy(mask).to("meta"), 8)
 
 
 def test_fps_full_kitti_cloud_equal_jax():

@@ -12,18 +12,9 @@
 // keypoints x 8 frames, two more in the RoI grid pool) for what is a scan
 // in index order that can stop early. This kernel is that scan.
 //
-// The distance is bit-equal to ops/fps.squared_distance, which rounds as
-// XLA's CPU code fuses |c - s|^2: dx, dy, dz float32 differences; then
-// p = (float)(dx*dx), q = (float)((double)dy*dy + p), d = (float)((double)
-// dz*dz + q), each product exact in float64. Keypoint and ball-query
-// indices are held exact against the plain version, the benchmark's
-// reference and the JAX package, so the kernel forms d in that sequence:
-// p as one float32 multiply (the exact product rounded once, as the
-// float64 product rounded to float32 is), q and d as float64 fused
-// multiply-adds (the product is exact, so one rounding of the sum, as the
-// float64 add) each rounded to float32. A float32 fma chain would round the
-// sums once where the plain version rounds twice, and can differ on a
-// float32 midpoint. Then d < r2, r2 = float32(radius)^2 from the wrapper.
+// The distance is bit-equal to ops/fps.squared_distance (squared_distance.cuh,
+// shared with the FPS kernel, says how), then d < r2, r2 = float32(radius)^2
+// from the wrapper.
 //
 // What bounds it on the H100: at most B*M*N pair tests of 13 operations
 // (three float32 differences, one float32 multiply, two float64 fmas, six
@@ -50,16 +41,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "squared_distance.cuh"
 
-// |c - s|^2 in the rounding of ops/fps.squared_distance (see above).
-__device__ __forceinline__ float squared_distance(float cx, float cy, float cz,
-                                                  float sx, float sy, float sz) {
-  const float dx = __fsub_rn(cx, sx), dy = __fsub_rn(cy, sy), dz = __fsub_rn(cz, sz);
-  const float p = __fmul_rn(dx, dx);
-  const float q = __double2float_rn(__fma_rn((double)dy, (double)dy, (double)p));
-  return __double2float_rn(__fma_rn((double)dz, (double)dz, (double)q));
-}
+namespace {
 
 template <int W>
 __global__ void __launch_bounds__(W * 32)

@@ -28,7 +28,7 @@ PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("zwin_conv", "gather_gemm", "gather_rows", "column_conv",
-           "zwin_align_v1", "zwin_align_v3", "ball_query", "voxel_query")
+           "zwin_align_v1", "zwin_align_v3", "ball_query", "voxel_query", "fps")
 SOURCES = {"zwin_align_v1": "zwin_align_gemm", "zwin_align_v3": "zwin_align_gemm"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # route names in the order of the entry point's route argument
 ROUTES = {"gather_gemm": ("fma", "mma"), "zwin_conv": ("fma", "mma"),
           "column_conv": ("fma", "mma"), "zwin_align_v1": ("fma", "mma"),
-          "zwin_align_v3": ("fma", "mma")}
+          "zwin_align_v3": ("fma", "mma"), "fps": ("reg", "smem", "global")}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}.{r}": 0 for name, routes in ROUTES.items() for r in routes})
@@ -120,19 +120,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args, route=None):
-    """Call ``<name>_launch(*args)`` (a C function that returns the
-    launch's cudaError_t), raise if the launch was refused, and count it,
-    under ``<name>.<route>`` too when a route is given."""
+def call(name: str, entry: str, argtypes, *args):
+    """Call the C function ``entry`` of kernel ``name``'s library, which
+    returns a cudaError_t, and raise if it is not 0."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     err = fn(*args)
     if err:
         err_fn = getattr(lib, f"{source_of(name)}_error_string")
         err_fn.argtypes, err_fn.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{name} launch failed: " + err_fn(err).decode())
+        raise RuntimeError(f"{entry} failed: " + err_fn(err).decode())
+
+
+def launch(name: str, argtypes, *args, route=None):
+    """Call ``<name>_launch(*args)`` (a C function that returns the
+    launch's cudaError_t), raise if the launch was refused, and count it,
+    under ``<name>.<route>`` too when a route is given."""
+    call(name, f"{name}_launch", argtypes, *args)
     LAUNCHES[name] += 1
     if route is not None:
         LAUNCHES[f"{name}.{route}"] += 1
