@@ -704,7 +704,7 @@ def column_path_layers(cfg, points, num):
             else:
                 ok, om, nd = csp.downsample_bev_columns(
                     keys, mask, grid[1:], kernel[1:], stride[1:], pad[1:],
-                    spec["out_col_cap"], out_grid[1:])
+                    cfg.stage_column_capacity(si + 1), out_grid[1:])
             counters[f"stage{si + 1}_columns_dropped"] = int(nd.sum())
             rbd = csp.build_bev_rulebook_batched(keys, mask, grid[1:], kernel[1:],
                                                  stride[1:], pad[1:], ok, om, out_grid[1:])
@@ -994,7 +994,7 @@ def train_path_layers(cfg, points, num):
         for si, (chans, spec) in enumerate(SpMiddleFHD(cfg).block_specs()):
             rbs, rbd, rbt, ok, om, _ = sp.plan_stage_train_batched(
                 keys, mask, grid, spec["kernel"], spec["stride"], spec["pad"],
-                spec["out_cap"], subm_kernel=(3, 3, 3))
+                cfg.stage_voxel_capacity(si + 1), subm_kernel=(3, 3, 3))
             n, m = keys.shape[1], ok.shape[1]
             kd = spec["kernel"][0] * spec["kernel"][1] * spec["kernel"][2]
             widths = {}   # (cin, cout) -> [gather_gemm launches, regathers]
@@ -1757,7 +1757,8 @@ def embed_333_check(model, st):
     w = model.cnn.down[si].weight.detach()
     kernel = spec["kernel"]
     _, rbd, _, _, _ = sp.plan_stage_batched(
-        st.keys, st.mask, st.grid, kernel, spec["stride"], spec["pad"], spec["out_cap"],
+        st.keys, st.mask, st.grid, kernel, spec["stride"], spec["pad"],
+        cfg.stage_voxel_capacity(si + 1),
         subm_kernel=(3, 3, 3), subm_col_cap=cfg.stage_column_capacity(si),
         down_col_cap=cfg.stage_column_capacity(si + 1))
     start, pattern = rbd

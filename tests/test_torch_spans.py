@@ -105,8 +105,9 @@ def test_annotate_records_only_under_a_profiler(monkeypatch):
 def test_second_inference_spans(tmp_path, backend):
     """One ``Second.inference``: every op under ``v3d:inference``; voxelize,
     middle, RPN, head, decode and NMS under it; every plan under the middle
-    extractor; the waits for the device (``v3d:sync``) under the forward,
-    NMS's among them."""
+    extractor, one a sparse stage's plan (two voxel stages; two column stages,
+    their submanifold and their strided rulebooks); the waits for the
+    device (``v3d:sync``) under the forward, NMS's among them."""
     cfg = small_cfg(sparse_backend=backend)
     model, anchors = create_second(cfg, device="cpu")
     pts, num = uniform_points(cfg, np.random.default_rng(3), 2, 300)
@@ -118,6 +119,7 @@ def test_second_inference_spans(tmp_path, backend):
     assert_under(spans, "inference", ["voxelize", "middle", "rpn", "head", "decode", "nms",
                                       "sync"])
     assert_under(spans, "middle", ["plan"])
+    assert len(spans["plan"]) == {"voxel": 2, "column": 4}[backend]
     assert any(inside(e, spans["nms"][0]) for e in spans["sync"])
     assert ops and all(inside(op, spans["inference"][0]) for op in ops)
 
@@ -125,7 +127,8 @@ def test_second_inference_spans(tmp_path, backend):
 def test_second_train_step_spans(tmp_path):
     """One SECOND ``train_step``: target assignment, the loss's forward, the
     backward pass, the all-reduce and the optimizer under
-    ``v3d:train_step``; the model's layers under the loss's forward."""
+    ``v3d:train_step``; the model's layers under the loss's forward, one plan
+    a sparse stage (all four)."""
     cfg = small_cfg()
     model, tx, state = create_train_state(cfg, steps_per_epoch=10, device="cpu")
     step = make_train_step(model, tx, cfg)
@@ -143,12 +146,14 @@ def test_second_train_step_spans(tmp_path):
                  ["target_assign", "loss_forward", "backward", "allreduce", "optimizer"])
     assert_under(spans, "loss_forward", ["voxelize", "middle", "rpn", "head"])
     assert_under(spans, "middle", ["plan"])
+    assert len(spans["plan"]) == 4
 
 
 def test_pvrcnn_two_stage_spans(tmp_path):
     """One ``PV_RCNN.inference_two_stage``: one FPS span for all the steps,
     one point branch, one grid pool, the refinement, all under
-    ``v3d:inference``."""
+    ``v3d:inference``; four plans (two sparse stages, then the two dense
+    stages' key sets for the scales)."""
     cfg = pv_small_cfg()
     model, anchors = create_pvrcnn(cfg, device="cpu")
     pts, num = uniform_points(cfg, np.random.default_rng(5), 2, 400)
@@ -163,4 +168,5 @@ def test_pvrcnn_two_stage_spans(tmp_path):
     assert_under(spans, "inference", ["fps", "point_branch", "grid_pool", "refine", "middle",
                                       "decode", "nms"])
     assert_under(spans, "middle", ["plan"])
+    assert len(spans["plan"]) == 4
     assert all(inside(op, spans["inference"][0]) for op in ops)

@@ -2,6 +2,8 @@
 plans (active sets + z-window rulebooks), densify, dense stage ops and
 the BEV collapse. All integer outputs must be exactly equal."""
 
+import weakref
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,7 @@ from vision3d_tpu.ops import sparse as jsp
 from vision3d_tpu_torch.models import sparse_cnn as tscnn
 from vision3d_tpu_torch.ops import sparse as tsp
 
-from torch_parity import sorted_key_sets, uniform_points
+from torch_parity import port_cfg, sorted_key_sets, uniform_points
 
 STAGES = [  # SpMiddleFHD's strided convs: kernel, stride, pad
     ((3, 3, 3), (2, 2, 2), (1, 1, 1)),
@@ -185,3 +187,37 @@ def test_dense_conv_and_dilation(spec):
     np.testing.assert_array_equal(
         tscnn.dense_dilate_occ(_t(occ), kernel, stride, pad).numpy(),
         np.asarray(jscnn.dense_dilate_occ(jnp.asarray(occ), kernel, stride, pad)))
+
+
+@pytest.mark.parametrize("backend", ["voxel", "column"])
+def test_conv_outputs_are_freed_before_the_relu(tiny_cfg, backend, monkeypatch):
+    """The epilogue (``bn_relu``) drops a conv's float32 output after the
+    batch norm, so in inference no z-window or dense conv output is alive
+    at any ReLU of the middle extractor: a dense stage's output volume sets
+    the forward's peak memory."""
+    made, alive = [], []
+
+    def tracked(fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            made.append(weakref.ref(out))
+            return out
+        return run
+
+    relu = torch.nn.functional.relu
+
+    def counted_relu(x, inplace=False):
+        alive.append(sum(r() is not None for r in made))
+        return relu(x, inplace)
+
+    monkeypatch.setattr(tscnn, "zwin_conv", tracked(tscnn.zwin_conv))
+    monkeypatch.setattr(tscnn, "_dense_conv", tracked(tscnn._dense_conv))
+    monkeypatch.setattr(torch.nn.functional, "relu", counted_relu)
+    cfg = port_cfg(tiny_cfg).replace(sparse_backend=backend, dense_from_stage=2)
+    feats, coords, mask = (_t(a) for a in _tiny_sparse(tiny_cfg))
+    grid = cfg.grid_shape_zyx
+    st = (tscnn.from_voxels_columns(feats, coords, mask, grid, cfg.max_voxels)[0]
+          if backend == "column" else tscnn.from_voxels(feats, coords, mask, grid))
+    with torch.no_grad():
+        tscnn.SpMiddleFHD(cfg).eval()(st)
+    assert len(alive) == 14 and made and not any(alive), alive

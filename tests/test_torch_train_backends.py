@@ -368,7 +368,8 @@ def test_column_conv_backward_matches_jax_vjp(spec):
 
 
 def test_column_bn_training_statistics_match_masked_bn_flat():
-    """The column batch norm in training mode against
+    """The column batch norm in training mode (``bn_relu`` on the one-pass
+    statistics, as the column representation runs it on its rows) against
     ``MaskedBatchNormFlat(train=True)`` on the same rows and parameters:
     its output (ReLU'd and masked), and the running mean and the one-pass
     variance after the update, with a constant channel (variance 0)."""
@@ -394,7 +395,7 @@ def test_column_bn_training_statistics_match_masked_bn_flat():
         bn.bias.copy_(_t(bias))
         bn.running_mean.copy_(_t(mean0))
         bn.running_var.copy_(_t(var0))
-    got = tscnn._column_bn_relu(bn, _t(flat), _t(site), torch.float32)
+    got = tscnn.bn_relu(bn, _t(x), _t(site), one_pass=True).reshape(b, n, d * c)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(bn.running_mean.numpy(), mutated["batch_stats"]["mean"],
                                rtol=1e-6, atol=1e-6)

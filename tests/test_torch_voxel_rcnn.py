@@ -257,6 +257,7 @@ def test_spans_of_one_inference(calibrated, tmp_path):
             spans.setdefault(e["name"][len(profiler.SPAN_PREFIX):], []).append(e)
     assert len(spans["voxel_query"]) == 3 and len(spans["voxel_roi_pool"]) == 1
     assert len(spans["rcnn_head"]) == 1 and spans["decode"] and spans["nms"]
+    assert len(spans["plan"]) == 4     # one a stage: all four run sparse
     (inf,) = spans["inference"]
     for name in ("voxel_roi_pool", "voxel_query", "rcnn_head", "middle"):
         for e in spans[name]:

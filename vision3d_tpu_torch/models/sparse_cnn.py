@@ -1,36 +1,30 @@
 """SpMiddleFHD sparse middle extractors (port of
-``vision3d_tpu/models/sparse_cnn.py``): the voxel, column and dense
-representations, for inference and for training.
+``vision3d_tpu/models/sparse_cnn.py``) on three representations, for
+inference and for training. Four blocks of submanifold + strided convs take
+voxel features at grid (41, 1600, 1408) ZYX down to (2, 200, 176), then
+collapse z into a (ny, nx, C*D) BEV map; channels 4 -> 16 -> 32 -> 64 ->
+64, BN eps 1e-3.
 
-Four blocks of submanifold + strided convs take voxel features at grid
-(41, 1600, 1408) ZYX down to (2, 200, 176), then collapse z into a
-(ny, nx, C*D) BEV map; channels 4 -> 16 -> 32 -> 64 -> 64, BN eps 1e-3.
-Stages before ``cfg.dense_from_stage`` run sparse (key-sorted tensors,
-z-window rulebooks, the ``zwin_conv`` CUDA kernel); later stages run as
-dense masked volumes with cuDNN conv3d, exact spconv semantics recovered
-by masking to the active set. In training mode (``module.training``) the
-stages before ``cfg.train_dense_from_stage`` (default 4: all of them) run
-sparse on full-tap rulebooks: every conv is the ``gather_gemm`` CUDA
-kernel, forward and dX, and dW regathers its columns with the
-``gather_rows`` kernel; the cutover to the dense stages is one all-cells
-row gather whose backward is one gather (``dense_from_sparse``), and the
-dense convs train by autograd through cuDNN.
+``SpMiddleFHD.forward`` is one loop over the blocks: cut over to a dense
+volume at ``cfg.dense_from_stage`` (``train_dense_from_stage`` in
+training), plan the stage (one ``StagePlan``), run the submanifold convs
+and the strided conv, collect the scales. Each representation does those
+steps (``densify``, ``plan``, ``subm``, ``down``), ``to_bev`` and
+``to_voxel_sparse`` its own way. The conv modules hold only parameters and
+geometry, and every conv ends in the one epilogue ``bn_relu``.
 
-With ``cfg.sparse_backend = "column"`` the input is a ``ColumnTensor``
-(sparse in BEV, dense in z, ``ops/column_sparse.py``): the sparse stages
-run BEV-column rulebooks and the ``column_conv`` CUDA kernel, and the
-cutover to the dense stages is one row gather (``dense_from_columns``).
-The column convs are ``ops.column_conv.ColumnConvFn``, whose backward
-runs dX on the ``column_conv`` kernel over the transposed BEV rulebook
-and dW by a ``gather_rows`` regather and one GEMM. The parameters are the same
-whatever the representation, so one state dict serves both backends.
+- ``SparseTensor`` (voxel backend), key-sorted (B, N, C): z-window
+  rulebooks on the ``zwin_conv`` kernel; in training full-tap rulebooks on
+  ``gather_gemm`` (forward and dX) and ``gather_rows`` (dW's regather).
+- ``ColumnTensor`` (``sparse_backend = "column"``, ``ops/column_sparse.py``):
+  sparse in BEV, dense in z, flat z-major (B, Ncol, D*C) rows; BEV-column
+  rulebooks through ``ColumnConvFn``; one-pass BN statistics in training.
+- ``DenseTensor``: (B, C, D, H, W) feats in channels-last-3d memory (cuDNN's
+  layout) and (B, D, H, W) occupancy; cuDNN conv3d masked to the exact
+  spconv active set, trained by autograd.
 
-Layouts: a ``SparseTensor`` is (B, N, C); a ``ColumnTensor`` holds flat
-z-major (B, Ncol, D*C) rows; a ``DenseTensor`` holds feats
-as (B, C, D, H, W) in channels-last-3d memory (cuDNN's preferred layout;
-the JAX package's hwdc/z-major choice was a TPU tactic) and occupancy as
-(B, D, H, W). Weights keep the JAX layout (K*Cin, Cout),
-K = (dz*ky + dy)*kx + dx.
+One state dict serves every representation. Weights keep the JAX layout
+(K*Cin, Cout), K = (dz*ky + dy)*kx + dx.
 """
 
 from dataclasses import dataclass, replace
@@ -51,6 +45,20 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
+class StagePlan:
+    """A stage's rulebooks: ``subm`` (z-window (start, pattern), full-tap rows
+    if ``train``, BEV rows on columns); on voxels the strided conv's ``down``,
+    its transpose ``down_t`` (``train`` only), the output ``keys``, ``mask``."""
+    stage: int
+    train: bool = False
+    subm: object = None
+    down: object = None
+    down_t: torch.Tensor = None
+    keys: torch.Tensor = None
+    mask: torch.Tensor = None
+
+
+@dataclass
 class SparseTensor:
     feats: torch.Tensor  # (B, N, C)
     keys: torch.Tensor   # (B, N) int32, sorted, sentinel-padded
@@ -61,6 +69,54 @@ class SparseTensor:
     def coords(self):
         """(B, N, 3) ZYX coords (zeros at padding)."""
         return sp.keys_to_coords(torch.where(self.mask, self.keys, 0), self.grid)
+
+    def densify(self, cfg, si, train, keep_keys, diag):
+        if train:
+            return dense_from_sparse(self, keep_keys)
+        x, diag[f"stage{si}_densify_dropped"] = dense_from_sparse_cols(
+            self, cfg.stage_column_capacity(si), keep_keys)
+        return x
+
+    def plan(self, cfg, si, conv, has_subm, train, diag):
+        args = (self.keys, self.mask, self.grid, conv.kernel, conv.stride, conv.pad,
+                conv.out_cap)
+        subm = (3, 3, 3) if has_subm else None
+        rbt = None
+        with annotate("plan"):
+            if train:
+                rb, rbd, rbt, ok, om, ndrop = sp.plan_stage_train_batched(
+                    *args, subm_kernel=subm)
+            else:
+                rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
+                    *args, subm_kernel=subm, subm_col_cap=cfg.stage_column_capacity(si),
+                    down_col_cap=conv.out_col_cap)
+        diag[f"stage{si + 1}_dropped"] = ndrop   # output sites the capacity cut
+        return StagePlan(si, train, rb, rbd, rbt, ok, om)
+
+    def subm(self, conv, plan):
+        # in training a full-tap rulebook: conv-as-backward autograd function
+        return replace(self, feats=bn_relu(
+            conv.bn,
+            sp.SubmConvFn.apply(self.feats, plan.subm, conv.weight, conv.cdt)
+            if plan.train else zwin_conv(self.feats, *plan.subm, conv.weight, conv.kernel,
+                                         conv.cdt),
+            self.mask))
+
+    def down(self, conv, plan, diag):
+        return SparseTensor(feats=bn_relu(
+            conv.bn,
+            sp.DownConvFn.apply(self.feats, plan.down, plan.down_t, conv.weight, conv.cdt)
+            if plan.train else zwin_conv(self.feats, *plan.down, conv.weight, conv.kernel,
+                                         conv.cdt),
+            plan.mask), keys=plan.keys, mask=plan.mask, grid=conv.out_grid(self.grid))
+
+    def to_bev(self):
+        dense = sp.to_dense(self.feats, self.keys, self.mask, self.grid)  # (B, D, H, W, C)
+        b, d, h, w, c = dense.shape
+        return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
+
+    def to_voxel_sparse(self, cap=None):
+        return self
 
 
 @dataclass
@@ -86,6 +142,61 @@ class ColumnTensor:
                                         self.grid, cap)
         return SparseTensor(feats=f.float(), keys=k, mask=m, grid=self.grid)
 
+    def densify(self, cfg, si, train, keep_keys, diag):
+        return dense_from_columns(self, keep_keys=keep_keys,
+                                  voxel_cap=cfg.stage_voxel_capacity(si))
+
+    def plan(self, cfg, si, conv, has_subm, train, diag):
+        if not has_subm:
+            return StagePlan(si, train)
+        with annotate("plan"):
+            rb = csp.build_bev_rulebook_batched(self.keys, self.mask, self.grid[1:],
+                                                (3, 3), (1, 1), (1, 1))
+        return StagePlan(si, train, rb)
+
+    def subm(self, conv, plan):
+        # a subm conv's rulebook is its own transpose: dX runs over it
+        out = ColumnConvFn.apply(self.feats, plan.subm, plan.subm, conv.weight, conv.kernel,
+                                 self.grid[0], self.c, 1, conv.kernel[0] // 2, conv.cdt)
+        site = self.zmask & self.mask[..., None]
+        y = bn_relu(conv.bn, out.reshape(*site.shape, -1), site, dtype=conv.cdt,
+                    one_pass=True)
+        return replace(self, feats=y.reshape(*site.shape[:2], -1), c=conv.weight.shape[1])
+
+    def down(self, conv, plan, diag):
+        """Plans (after the submanifold convs) and runs the strided conv."""
+        out_grid = conv.out_grid(self.grid)
+        kyx, syx, pyx = conv.kernel[1:], conv.stride[1:], conv.pad[1:]
+        in_hw, out_hw = self.grid[1:], out_grid[1:]
+        with annotate("plan"):
+            if kyx == (1, 1) and syx == (1, 1):
+                # BEV-identity down conv (the (3, 1, 1) stage): same column set
+                ok, om = self.keys, self.mask
+                ndrop = torch.zeros_like(self.keys[:, 0])
+            else:
+                ok, om, ndrop = csp.downsample_bev_columns(
+                    self.keys, self.mask, in_hw, kyx, syx, pyx, conv.out_col_cap, out_hw)
+            rb = csp.build_bev_rulebook_batched(self.keys, self.mask, in_hw, kyx, syx, pyx,
+                                                out_keys=ok, out_mask=om, out_hw=out_hw)
+            # the transposed rulebook only serves the backward's dX
+            rbt = (csp.transpose_bev_rulebook_batched(self.keys, self.mask, in_hw, kyx, syx,
+                                                      pyx, ok, om, out_hw)
+                   if torch.is_grad_enabled() and self.feats.requires_grad else None)
+        of = ColumnConvFn.apply(self.feats, rb, rbt, conv.weight, conv.kernel, self.grid[0],
+                                self.c, conv.stride[0], conv.pad[0], conv.cdt)
+        oz = csp.column_occupancy_batched(self.zmask, rb, conv.kernel, conv.stride[0],
+                                          conv.pad[0])
+        diag[f"stage{plan.stage + 1}_columns_dropped"] = ndrop   # output columns cut
+        site = oz & om[..., None]
+        y = bn_relu(conv.bn, of.reshape(*site.shape, -1), site, dtype=conv.cdt,
+                    one_pass=True)
+        return ColumnTensor(feats=y.reshape(*site.shape[:2], -1), zmask=oz, keys=ok,
+                            mask=om, grid=out_grid, c=conv.weight.shape[1])
+
+    def to_bev(self):
+        return csp.columns_to_bev_batched(self.feats, self.zmask, self.keys, self.mask,
+                                          self.grid, self.c)
+
 
 @dataclass
 class DenseTensor:
@@ -97,10 +208,10 @@ class DenseTensor:
     keys: torch.Tensor = None   # (B, N) int32
     mask: torch.Tensor = None   # (B, N) bool
 
-    def to_voxel_sparse(self) -> SparseTensor:
-        """The features at the kept key set, float32, zero at padding. The
-        volume is z-major, so column-major key (y*W + x)*D + z reads raster
-        row z*H*W + y*W + x (``DenseTensor.to_voxel_sparse``,
+    def to_voxel_sparse(self, cap=None) -> SparseTensor:
+        """The features at the kept key set (``cap`` unused), float32, zero
+        at padding. The volume is z-major, so column-major key (y*W + x)*D + z
+        reads raster row z*H*W + y*W + x (``DenseTensor.to_voxel_sparse``,
         vision3d_tpu/models/sparse_cnn.py:107, its non-hwdc branch)."""
         d, h, w = self.grid
         b, c = self.feats.shape[:2]
@@ -110,6 +221,38 @@ class DenseTensor:
         bidx = torch.arange(b, device=k.device)[:, None]
         f = torch.where(self.mask[..., None], flat[bidx, raster].float(), 0.0)
         return SparseTensor(feats=f, keys=self.keys, mask=self.mask, grid=self.grid)
+
+    def densify(self, cfg, si, train, keep_keys, diag):
+        return self
+
+    def plan(self, cfg, si, conv, has_subm, train, diag):
+        return StagePlan(si, train)
+
+    def subm(self, conv, plan):
+        return replace(self, feats=bn_relu(
+            conv.bn, _dense_conv(self.feats, conv.weight, conv.kernel, (1, 1, 1), (1, 1, 1),
+                                 conv.cdt),
+            self.occ, channel_dim=1, dtype=conv.cdt))
+
+    def down(self, conv, plan, diag):
+        of = bn_relu(
+            conv.bn,
+            _dense_conv(self.feats, conv.weight, conv.kernel, conv.stride, conv.pad, conv.cdt),
+            oz := dense_dilate_occ(self.occ, conv.kernel, conv.stride, conv.pad),
+            channel_dim=1, dtype=conv.cdt)
+        okeys = omask = None
+        if self.keys is not None:
+            with annotate("plan"):
+                okeys, omask, _ = sp.downsample_active_set(
+                    self.keys, self.mask, self.grid, conv.kernel, conv.stride, conv.pad,
+                    conv.out_cap)
+        return DenseTensor(feats=of, occ=oz, grid=conv.out_grid(self.grid), keys=okeys,
+                           mask=omask)
+
+    def to_bev(self):
+        b, c, d, h, w = self.feats.shape
+        f = torch.where(self.occ[:, None], self.feats, 0.0)
+        return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
 
 
 def from_voxels(feats, coords, mask, grid) -> SparseTensor:
@@ -243,18 +386,12 @@ def dense_dilate_occ(occ, kernel, stride, pad):
     return F.max_pool3d(x, kernel, stride, pad)[:, 0] > 0
 
 
-def _conv3d_weight(weight, kernel):
-    """(K*Cin, Cout) -> (Cout, Cin, kz, ky, kx)."""
-    kz, ky, kx = kernel
-    cin = weight.shape[0] // (kz * ky * kx)
-    return weight.reshape(kz, ky, kx, cin, weight.shape[1]).permute(4, 3, 0, 1, 2)
-
-
 def _dense_conv(x, weight, kernel, stride, pad, cdt):
     """conv3d (cross-correlation, as JAX's conv_general_dilated) in the
-    compute dtype; the result is returned as float32."""
-    wk = _conv3d_weight(weight, kernel).to(cdt).contiguous(
-        memory_format=torch.channels_last_3d)
+    compute dtype, the (K*Cin, Cout) weight read as (Cout, Cin, kz, ky, kx);
+    the result is returned as float32."""
+    wk = weight.reshape(*kernel, -1, weight.shape[1]).permute(4, 3, 0, 1, 2)
+    wk = wk.to(cdt).contiguous(memory_format=torch.channels_last_3d)
     return F.conv3d(x.to(cdt), wk, stride=stride, padding=pad).float()
 
 
@@ -299,24 +436,24 @@ class MaskedBatchNorm(nn.Module):
         return torch.where(m, y, 0.0)
 
 
-def _column_bn_relu(bn, out, site, cdt):
-    """Masked BN + ReLU on the flat (B, N, D*C) f32 rows of a column conv,
-    zeroed off the active sites (B, N, D) and rounded to the compute dtype
-    (``MaskedBatchNormFlat`` with the parameters of ``MaskedBatchNorm``,
-    vision3d_tpu/models/sparse_cnn.py:421, :506-510). In training mode the
-    statistics are ``MaskedBatchNormFlat``'s (:443-453): the masked mean
-    over the sites of (B, N, D) (count clamped to 1) and the one-pass
-    variance max(E[x^2] - mean^2, 0), which also feed the running update
-    at momentum 0.01; then x * g + (bias - mean * g), g = weight /
-    sqrt(var + eps). Under a process group the two sums and the count are
-    the global batch's (one all-reduce)."""
-    b, n, d = site.shape
-    x = out.reshape(b, n, d, -1)
-    if bn.training:
-        w = site[..., None].to(x.dtype)
+def bn_relu(bn: MaskedBatchNorm, x, site, channel_dim=-1, dtype=torch.float32,
+            one_pass=False):
+    """Every conv's epilogue: masked batch norm, ReLU, zero off the active
+    ``site``s, rounded to ``dtype``. ``x``, the float32 pre-activation, is
+    dropped after the batch norm: passed as a temporary, a dense stage's is
+    freed before the ReLU pass. Training statistics are ``MaskedBatchNorm``'s,
+    or with ``one_pass`` (columns, channels last) ``MaskedBatchNormFlat``'s
+    (vision3d_tpu/models/sparse_cnn.py:443-453): masked mean (count clamped
+    to 1), variance max(E[x^2] - mean^2, 0), both also the running update's,
+    then x * g + (bias - mean * g), g = weight / sqrt(var + eps); under a
+    process group the two sums and the count are global (one all-reduce)."""
+    m = site.unsqueeze(channel_dim)
+    if one_pass and bn.training:
+        w = m.to(x.dtype)
         xm = x * w
         c = x.shape[-1]
-        sums = global_sum(torch.cat([xm.sum(dim=(0, 1, 2)), (xm * x).sum(dim=(0, 1, 2)),
+        axes = tuple(range(x.dim() - 1))
+        sums = global_sum(torch.cat([xm.sum(dim=axes), (xm * x).sum(dim=axes),
                                      site.sum().to(x.dtype)[None]]))
         cnt = sums[-1].clamp(min=1.0)
         mean = sums[:c] / cnt
@@ -327,13 +464,13 @@ def _column_bn_relu(bn, out, site, cdt):
         g = torch.rsqrt(var + bn.eps) * bn.weight
         y = x * g + (bn.bias - mean * g)
     else:
-        y = bn(x, site)
-    y = torch.where(site[..., None], F.relu(y), 0.0).to(cdt)
-    return y.reshape(b, n, -1)
+        y = bn(x, site, channel_dim)
+    del x
+    return torch.where(m, F.relu(y), 0.0).to(dtype)
 
 
 class SubMConv(nn.Module):
-    """Submanifold conv: output sites == input sites."""
+    """Submanifold conv: output sites == input sites (run by ``<tensor>.subm``)."""
 
     def __init__(self, cin: int, cout: int, dtype: str = "float32"):
         super().__init__()
@@ -342,31 +479,9 @@ class SubMConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(27 * cin, cout))
         self.bn = MaskedBatchNorm(cout)
 
-    def forward(self, x, rb=None):
-        if isinstance(x, DenseTensor):
-            out = _dense_conv(x.feats, self.weight, self.kernel, (1, 1, 1),
-                              (1, 1, 1), self.cdt)
-            out = self.bn(out, x.occ, channel_dim=1)
-            out = torch.where(x.occ[:, None], F.relu(out), 0.0).to(self.cdt)
-            return replace(x, feats=out)
-        if isinstance(x, ColumnTensor):
-            # a subm conv's rulebook is its own transpose: dX runs over it
-            out = ColumnConvFn.apply(x.feats, rb, rb, self.weight, self.kernel,
-                                     x.grid[0], x.c, 1, self.kernel[0] // 2, self.cdt)
-            site = x.zmask & x.mask[..., None]
-            return replace(x, feats=_column_bn_relu(self.bn, out, site, self.cdt),
-                           c=self.weight.shape[1])
-        if isinstance(rb, tuple):
-            out = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
-                            self.cdt)
-        else:   # full-tap rulebook: conv-as-backward autograd function
-            out = sp.SubmConvFn.apply(x.feats, rb, self.weight, self.cdt)
-        out = self.bn(out, x.mask)
-        return replace(x, feats=torch.where(x.mask[..., None], F.relu(out), 0.0))
-
 
 class SparseConvDown(nn.Module):
-    """Strided conv: a new, coarser active set."""
+    """Strided conv: a new, coarser active set (run by ``<tensor>.down``)."""
 
     def __init__(self, cin, cout, kernel, stride, pad, out_cap, out_col_cap,
                  dtype="float32"):
@@ -379,81 +494,15 @@ class SparseConvDown(nn.Module):
         self.weight = nn.Parameter(torch.zeros(kv * cin, cout))
         self.bn = MaskedBatchNorm(cout)
 
-    def forward(self, x, plan=None):
-        """x: a DenseTensor, or a SparseTensor with its stage plan (a
-        ColumnTensor goes through ``forward_columns``)."""
-        out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
-        if isinstance(x, DenseTensor):
-            of = _dense_conv(x.feats, self.weight, self.kernel, self.stride,
-                             self.pad, self.cdt)
-            oz = dense_dilate_occ(x.occ, self.kernel, self.stride, self.pad)
-            of = self.bn(of, oz, channel_dim=1)
-            of = torch.where(oz[:, None], F.relu(of), 0.0).to(self.cdt)
-            okeys = omask = None
-            if x.keys is not None:
-                with annotate("plan"):
-                    okeys, omask, _ = sp.downsample_active_set(
-                        x.keys, x.mask, x.grid, self.kernel, self.stride, self.pad,
-                        self.out_cap)
-            return DenseTensor(feats=of, occ=oz, grid=out_grid, keys=okeys,
-                               mask=omask)
-        if len(plan) == 4:   # training plan with the transpose rulebook
-            rb, rbt, ok, om = plan
-            of = sp.DownConvFn.apply(x.feats, rb, rbt, self.weight, self.cdt)
-        else:
-            rb, ok, om = plan
-            of = zwin_conv(x.feats, rb[0], rb[1], self.weight, self.kernel,
-                           self.cdt)
-        of = self.bn(of, om)
-        of = torch.where(om[..., None], F.relu(of), 0.0)
-        return SparseTensor(feats=of, keys=ok, mask=om, grid=out_grid)
-
-    def forward_columns(self, x: ColumnTensor):
-        """The strided conv on a ColumnTensor: returns (ColumnTensor,
-        columns_dropped (B,) int32: active output columns the column
-        capacity truncated)."""
-        out_grid = sp.out_grid_shape(x.grid, self.kernel, self.stride, self.pad)
-        kyx, syx, pyx = self.kernel[1:], self.stride[1:], self.pad[1:]
-        in_hw, out_hw = x.grid[1:], out_grid[1:]
-        with annotate("plan"):
-            if kyx == (1, 1) and syx == (1, 1):
-                # BEV-identity down conv (the (3, 1, 1) stage): same column set
-                ok, om = x.keys, x.mask
-                ndrop = torch.zeros((x.keys.shape[0],), dtype=torch.int32,
-                                    device=x.keys.device)
-            else:
-                ok, om, ndrop = csp.downsample_bev_columns(
-                    x.keys, x.mask, in_hw, kyx, syx, pyx, self.out_col_cap, out_hw)
-            rb = csp.build_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx, pyx,
-                                                out_keys=ok, out_mask=om, out_hw=out_hw)
-            # the transposed rulebook only serves the backward's dX
-            rbt = (csp.transpose_bev_rulebook_batched(x.keys, x.mask, in_hw, kyx, syx,
-                                                      pyx, ok, om, out_hw)
-                   if torch.is_grad_enabled() and x.feats.requires_grad else None)
-        of = ColumnConvFn.apply(x.feats, rb, rbt, self.weight, self.kernel, x.grid[0],
-                                x.c, self.stride[0], self.pad[0], self.cdt)
-        oz = csp.column_occupancy_batched(x.zmask, rb, self.kernel, self.stride[0],
-                                          self.pad[0])
-        site = oz & om[..., None]
-        return ColumnTensor(feats=_column_bn_relu(self.bn, of, site, self.cdt),
-                            zmask=oz, keys=ok, mask=om, grid=out_grid,
-                            c=self.weight.shape[1]), ndrop
+    def out_grid(self, grid):
+        return sp.out_grid_shape(grid, self.kernel, self.stride, self.pad)
 
 
 def to_bev(x) -> torch.Tensor:
     """Collapse z: -> dense BEV (B, H, W, C*D), channels c-major over
     (C, D) as the reference's ``view(N, C*D, H, W)``. The result is an
     NHWC view of an NCHW-contiguous map (``.permute(0, 3, 1, 2)`` is free)."""
-    if isinstance(x, SparseTensor):
-        dense = sp.to_dense(x.feats, x.keys, x.mask, x.grid)  # (B, D, H, W, C)
-        b, d, h, w, c = dense.shape
-        return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
-    if isinstance(x, ColumnTensor):
-        return csp.columns_to_bev_batched(x.feats, x.zmask, x.keys, x.mask,
-                                          x.grid, x.c)
-    b, c, d, h, w = x.feats.shape
-    f = torch.where(x.occ[:, None], x.feats, 0.0)
-    return f.reshape(b, c * d, h, w).permute(0, 2, 3, 1)
+    return x.to_bev()
 
 
 def to_global(st: SparseTensor, cfg: Config, stride: int):
@@ -475,9 +524,7 @@ def to_global(st: SparseTensor, cfg: Config, stride: int):
 
 class SpMiddleFHD(nn.Module):
     """Reference channel plan: per block 2-3 subm convs then a strided
-    conv; 4 -> 16 -> 32 -> 64 -> 64. ``block_scales``: the scales
-    ``need_scales`` returns are each block's submanifold output, not the
-    input and the strided convs' outputs."""
+    conv; 4 -> 16 -> 32 -> 64 -> 64."""
 
     block_scales = False
 
@@ -493,26 +540,24 @@ class SpMiddleFHD(nn.Module):
                 cin = ch
             down.append(SparseConvDown(cin, spec["features"], spec["kernel"],
                                        spec["stride"], spec["pad"],
-                                       spec["out_cap"], spec["out_col_cap"], dt))
+                                       cfg.stage_voxel_capacity(si + 1),
+                                       cfg.stage_column_capacity(si + 1), dt))
             cin = spec["features"]
         self.subm = nn.ModuleList(subm)
         self.down = nn.ModuleList(down)
 
     def block_specs(self):
-        c = self.cfg
+        """Per block, the submanifold convs' widths and the strided conv's
+        geometry; block i's strided conv keeps stage i + 1's capacities."""
         return [
             ([16, 16], dict(features=32, kernel=(3, 3, 3), stride=(2, 2, 2),
-                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(1),
-                            out_col_cap=c.stage_column_capacity(1))),
+                            pad=(1, 1, 1))),
             ([32, 32], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
-                            pad=(1, 1, 1), out_cap=c.stage_voxel_capacity(2),
-                            out_col_cap=c.stage_column_capacity(2))),
+                            pad=(1, 1, 1))),
             ([64, 64, 64], dict(features=64, kernel=(3, 3, 3), stride=(2, 2, 2),
-                                pad=(0, 1, 1), out_cap=c.stage_voxel_capacity(3),
-                                out_col_cap=c.stage_column_capacity(3))),
+                                pad=(0, 1, 1))),
             ([64, 64, 64], dict(features=64, kernel=(3, 1, 1), stride=(2, 1, 1),
-                                pad=(0, 0, 0), out_cap=c.stage_voxel_capacity(4),
-                                out_col_cap=c.stage_column_capacity(4))),
+                                pad=(0, 0, 0))),
         ]
 
     def bev_channels(self) -> int:
@@ -524,85 +569,39 @@ class SpMiddleFHD(nn.Module):
         return self.block_specs()[-1][1]["features"] * grid[0]
 
     def forward(self, st, need_scales: bool = False):
-        """st: a SparseTensor or a ColumnTensor. Returns (bev (B, H, W,
-        C*D), diagnostics {name: (B,) int32}). The stages from
-        ``cfg.dense_from_stage`` on (in training mode
-        ``cfg.train_dense_from_stage``) run dense. In training mode the
-        sparse voxel stages are planned with ``sp.plan_stage_train_batched``
-        and the cutover is ``dense_from_sparse`` (no column cap);
-        ``stage{1..}_dropped`` count the active output sites each sparse
-        stage's capacity truncated, and in inference
-        ``stage{i}_densify_dropped`` the sites the cutover's column cap
-        dropped. On a ColumnTensor ``stage{1..}_columns_dropped`` count
-        the active output columns each sparse stage's column capacity
-        truncated.
-
-        ``need_scales`` (PV-RCNN's set abstraction) returns (bev,
-        diagnostics, scales) with the four SparseTensors at strides 1, 2, 4
-        and 8: the input, then the outputs of stages 0-2; with
-        ``block_scales``, each block's output after its submanifold convs,
-        on the same sites. A ColumnTensor
-        scale i is read as voxels at ``cfg.stage_voxel_capacity(i)``, a
-        dense stage's output at its compact key set (on the column backend
-        the cutover's columns at that capacity, then each strided conv's
-        active set), as vision3d_tpu/models/sparse_cnn.py:797-806."""
-        cfg = self.cfg
-        dense_from = (cfg.train_dense_from_stage if self.training
-                      else cfg.dense_from_stage)
+        """st: a SparseTensor or a ColumnTensor. Returns (bev (B, H, W, C*D),
+        diagnostics {name: (B,) int32}): ``stage{1..}_dropped``, the output
+        sites each sparse voxel stage's capacity cut; in inference
+        ``stage{i}_densify_dropped``, the sites the cutover's column cap cut;
+        on columns ``stage{1..}_columns_dropped``, the output columns cut.
+        ``need_scales`` (PV-RCNN's set abstraction) adds the SparseTensors at
+        strides 1, 2, 4 and 8: the input, then stages 0-2's outputs (with
+        ``block_scales`` each block's after its submanifold convs), read as
+        voxels as vision3d_tpu/models/sparse_cnn.py:797-806 reads them."""
+        cfg, train = self.cfg, self.training
+        dense_from = cfg.train_dense_from_stage if train else cfg.dense_from_stage
         diag = {}
         x = st
         scales = [] if self.block_scales else [st]
-        li = 0
-        for si, (chans, spec) in enumerate(self.block_specs()):
-            if si >= dense_from and isinstance(x, SparseTensor) and self.training:
-                x = dense_from_sparse(x, keep_keys=need_scales)
-            elif si >= dense_from and isinstance(x, SparseTensor):
-                x, cdrop = dense_from_sparse_cols(
-                    x, cfg.stage_column_capacity(si), keep_keys=need_scales)
-                diag[f"stage{si}_densify_dropped"] = cdrop
-            elif si >= dense_from and isinstance(x, ColumnTensor):
-                x = dense_from_columns(x, keep_keys=need_scales,
-                                       voxel_cap=cfg.stage_voxel_capacity(si))
-            rb = plan = None
-            if isinstance(x, SparseTensor):
-                args = (x.keys, x.mask, x.grid, spec["kernel"], spec["stride"],
-                        spec["pad"], spec["out_cap"])
-                subm = (3, 3, 3) if chans else None
-                with annotate("plan"):
-                    if self.training:
-                        rb, rbd, rbt, ok, om, ndrop = sp.plan_stage_train_batched(
-                            *args, subm_kernel=subm)
-                        plan = (rbd, rbt, ok, om)
-                    else:
-                        rb, rbd, ok, om, ndrop = sp.plan_stage_batched(
-                            *args, subm_kernel=subm,
-                            subm_col_cap=cfg.stage_column_capacity(si),
-                            down_col_cap=cfg.stage_column_capacity(si + 1))
-                        plan = (rbd, ok, om)
-                diag[f"stage{si + 1}_dropped"] = ndrop
-            elif chans and isinstance(x, ColumnTensor):
-                with annotate("plan"):
-                    rb = csp.build_bev_rulebook_batched(x.keys, x.mask, x.grid[1:],
-                                                        (3, 3), (1, 1), (1, 1))
+        subm = iter(self.subm)
+        for si, (chans, _) in enumerate(self.block_specs()):
+            down = self.down[si]
+            if si >= dense_from:
+                x = x.densify(cfg, si, train, need_scales, diag)
+            plan = x.plan(cfg, si, down, bool(chans), train, diag)
             for _ in chans:
-                x = self.subm[li](x, rb)
-                li += 1
+                x = x.subm(next(subm), plan)
             if need_scales and self.block_scales:
                 scales.append(x)
-            if isinstance(x, ColumnTensor):
-                x, diag[f"stage{si + 1}_columns_dropped"] = \
-                    self.down[si].forward_columns(x)
-            else:
-                x = self.down[si](x, plan)
+            x = x.down(down, plan, diag)
+            del plan   # its rulebooks are freed before the next stage's are built
             if need_scales and not self.block_scales:
                 scales.append(x)
         if not need_scales:
-            return to_bev(x), diag
+            return x.to_bev(), diag
         scales = [s.to_voxel_sparse(cfg.stage_voxel_capacity(i))
-                  if isinstance(s, ColumnTensor)
-                  else s.to_voxel_sparse() if isinstance(s, DenseTensor) else s
                   for i, s in enumerate(scales[:4])]
-        return to_bev(x), diag, scales
+        return x.to_bev(), diag, scales
 
 
 class SpMiddleFHDLite(SpMiddleFHD):
