@@ -9,7 +9,7 @@ PV-RCNN inference, one stage and two, at full width and through eval_cli,
 trains PV-RCNN in both modes at full width and through train_cli, trains
 SECOND with dense late stages and on the column backend, runs and trains
 PV-RCNN on the column backend, trains on several ranks, and runs Voxel
-R-CNN inference at full width.
+R-CNN inference at full width, and times the conv epilogue kernel.
 
     python3 chip_smoke.py
 
@@ -204,13 +204,25 @@ Phases, each printing lines before the last:
      (3, 1, 1) conv_out through ``embed_333`` on its own rulebook against
      the plain version, with a broken copy (centre tap zeroed) that must
      fail; the p50 of 10 forwards and the peak memory.
+ 14. kernel K4 (``ops/bn_relu``, every conv's inference epilogue) at the
+     14 epilogues of one SECOND forward at the benchmark cell
+     second-car-infer-b8's configuration (bf16, fresh seeded init), each
+     on its own shape, strides and site mask (stages 2 and 3 dense, in
+     place): equal to the plain chain bit for bit; kernel and plain
+     CUDA-event medians and the bound (the site bytes and the active rows
+     read once, every row written once), per epilogue, per forward and
+     over the dense stages.
+Every inference forward on the card, in every phase, launches K4 once a
+conv (epilogue_launches: 14 a SECOND or PV-RCNN forward, 12 a Voxel R-CNN
+forward; float32 conv outputs on its "f32" route, the dense stages' bf16
+ones on "bf16"); no training step launches it.
 Every PV-RCNN forward or step on the card, in every phase, launches
 ball_query as BALL_QUERIES says (12 a two-stage forward or step, 10 a
 stage-1 step, none for the BEV branch alone or SECOND) and fps once
 (point_launches). The last line is
 {"ok": true, "device": {...}}; the one before it lists the kernels as
 JSON (ball_query, voxel_query and fps with their launches per forward and
-their times per query),
+their times per query, bn_relu with phase 14's epilogues),
 and the one before that is the card's name and power limit from
 nvidia-smi.
 """
@@ -249,9 +261,9 @@ from vision3d_tpu_torch.models.rpn import BatchNorm2d
 from vision3d_tpu_torch.models.second import build_middle_input
 from vision3d_tpu_torch.models.voxel_rcnn import (VoxelRCNN, create_voxel_rcnn,
                                                   roi_grid_points, voxel_rcnn_config)
-from vision3d_tpu_torch.models.sparse_cnn import (MaskedBatchNorm, SpMiddleFHD,
-                                                  from_voxels, from_voxels_columns,
-                                                  to_global)
+from vision3d_tpu_torch.models.sparse_cnn import (CNN_FACTORY, MaskedBatchNorm,
+                                                  SpMiddleFHD, from_voxels,
+                                                  from_voxels_columns, to_global)
 from vision3d_tpu_torch.ops.ball_query import ball_query, ball_query_plain
 from vision3d_tpu_torch.ops import voxel_query as vq
 from vision3d_tpu_torch.ops.fps import (furthest_point_sample, furthest_point_sample_plain,
@@ -316,6 +328,20 @@ def point_launches(mode, times=1):
     training steps of ``mode``: its ball queries and one fps (the
     keypoints, on the "reg" route at every size this file runs) each."""
     return {"ball_query": BALL_QUERIES[mode] * times, "fps": times, "fps.reg": times}
+
+
+def epilogue_launches(cfg, times=1):
+    """K4's launches (``bn_relu``) in ``times`` inference forwards of
+    ``cfg``'s middle extractor: one a conv, on the route of the conv
+    output's dtype: float32 from the sparse convs (B1, B3), the compute
+    dtype from the dense stages' cuDNN conv3d (``cfg.dense_from_stage`` on).
+    Training launches none."""
+    counts = {"f32": 0, "bf16": 0}
+    for si, (chans, _) in enumerate(CNN_FACTORY[cfg.cnn](cfg).block_specs()):
+        bf16 = si >= cfg.dense_from_stage and cfg.compute_dtype == "bfloat16"
+        counts["bf16" if bf16 else "f32"] += (len(chans) + 1) * times
+    return {"bn_relu": sum(counts.values()),
+            **{f"bn_relu.{r}": n for r, n in counts.items() if n}}
 
 
 # PV-RCNN training, card against CPU at small geometry in float32 (phase
@@ -958,8 +984,9 @@ def reference_phase(sd, dev, backend):
         out[d.type] = (det, {k: int(v) for k, v in diag.items()})
         # float32: every z-window and column launch on the FMA route
         want = ({} if d.type == "cpu"
-                else {"column_conv": 6, "column_conv.fma": 6} if backend == "column"
-                else {"zwin_conv": 6, "zwin_conv.fma": 6})
+                else {"column_conv": 6, "column_conv.fma": 6, **epilogue_launches(cfg)}
+                if backend == "column"
+                else {"zwin_conv": 6, "zwin_conv.fma": 6, **epilogue_launches(cfg)})
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"reference check on {d.type}: launches {launched}, "
                                 f"not {want}")
@@ -1368,7 +1395,8 @@ def cli_phase(cfg, shapes, gg_rows, gr_rows):
                         for rec in first + resumed]
 
         batches = -(-len(val) // BATCH)
-        want_eval = launches_at("zwin_conv", shapes, "launches_per_forward", dtype, batches)
+        want_eval = {**launches_at("zwin_conv", shapes, "launches_per_forward", dtype, batches),
+                     **epilogue_launches(cfg, batches)}
         (table_ckpt, timing_ckpt), out["eval_launches"] = counted(
             lambda: eval_cli.main(data + ["--ckpt", ckpt, "--out-json",
                                           str(tmp / "ap_ckpt.json")]), want_eval)
@@ -1387,7 +1415,8 @@ def cli_phase(cfg, shapes, gg_rows, gr_rows):
                    eval=timing, ap_gaps=gaps)
 
         png = tmp / "bev.png"
-        want_one = launches_at("zwin_conv", shapes, "launches_per_forward", dtype, 1)
+        want_one = {**launches_at("zwin_conv", shapes, "launches_per_forward", dtype, 1),
+                    **epilogue_launches(cfg)}
         printed = io.StringIO()     # one line per detection of a 4-step model
         with contextlib.redirect_stdout(printed):
             dets, out["inference_launches"] = counted(
@@ -1807,10 +1836,10 @@ def voxel_rcnn_phase(dev):
     points, num_t = batches[0]
     calibrate_bn(model, points, num_t, anchors)
     with torch.no_grad():
+        want = {**VOXEL_RCNN_LAUNCHES, **epilogue_launches(cfg)}
         (det, diag), launches = counted(
-            lambda: model.inference_two_stage(points, num_t, anchors), VOXEL_RCNN_LAUNCHES)
-        (out, _), _ = counted(lambda: model.two_stage(points, num_t, anchors),
-                              VOXEL_RCNN_LAUNCHES)
+            lambda: model.inference_two_stage(points, num_t, anchors), want)
+        (out, _), _ = counted(lambda: model.two_stage(points, num_t, anchors), want)
         *_, scales = model.trunk(points, num_t, need_scales=True)
         dropped = {}
         for i, (p, n) in enumerate(batches):
@@ -1878,6 +1907,98 @@ def voxel_rcnn_phase(dev):
                 peak_mem_bytes=int(torch.cuda.max_memory_allocated()))
 
 
+def bn_relu_bound_ms(rows, active, c, in_bytes, out_bytes):
+    """The least time of one epilogue on the H100: the site bytes and the
+    active rows read once (K4 reads no row whose site is off), every row
+    written once, over 3.35 TB/s; and the same with every row read
+    ("full")."""
+    written = rows * c * out_bytes
+    return (1e3 * (rows + active * c * in_bytes + written) / HBM_BYTES_PER_S,
+            1e3 * (rows + rows * c * in_bytes + written) / HBM_BYTES_PER_S)
+
+
+def bn_relu_phase(dev):
+    """Phase 14: kernel K4 (``ops/bn_relu``) at the epilogues of one SECOND
+    forward at the benchmark cell second-car-infer-b8's configuration
+    (configs/second/car.yaml, bf16, batch 8 x 18,000 points, fresh seeded
+    init): each epilogue's input shape, strides and dtypes and the
+    forward's own site mask, recorded in the forward (14 epilogues: 6 on
+    B1's float32 output, then the dense stages 2 and 3 on cuDNN's bf16
+    output, in place); K4 on a seeded input of each against
+    ``bn_relu_plain`` on the same card tensors, bit for bit; CUDA-event
+    medians of K4 and of the plain chain, and the bound, per epilogue."""
+    from vision3d_tpu_torch.ops import bn_relu as ep
+
+    cfg = Config.from_yaml(str(CAR_CONFIG)).replace(compute_dtype="bfloat16")
+    model, anchors = create_second(cfg, device=dev)
+    pts, num = kitti_like_batch(0, BATCH, POINTS)
+    calls, launch = [], ep.bn_relu
+
+    def record(x, site, mean, var, weight, bias, eps, channel_dim=-1, dtype=torch.float32):
+        calls.append(dict(shape=tuple(x.shape), stride=x.stride(), dtype=x.dtype,
+                          site=site.clone(), channel_dim=channel_dim, out=dtype, eps=eps))
+        return launch(x, site, mean, var, weight, bias, eps, channel_dim, dtype)
+
+    ep.bn_relu = record
+    try:
+        with torch.no_grad():
+            model.inference(torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev),
+                            anchors)
+    finally:
+        ep.bn_relu = launch
+    del model
+    blocks = [(si, kind) for si, (chans, _) in enumerate(SpMiddleFHD(cfg).block_specs())
+              for kind in ["subm"] * len(chans) + ["down"]]
+    check(len(calls) == len(blocks) == 14, f"{len(calls)} epilogues recorded in a forward")
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    rows = []
+    for i, ((si, kind), cl) in enumerate(zip(blocks, calls)):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        cd, site = cl["channel_dim"], cl["site"]
+        c = cl["shape"][cd]
+        x = torch.empty_strided(cl["shape"], cl["stride"], dtype=cl["dtype"], device=dev)
+        x.normal_(0.0, 3.0, generator=gen)
+        stats = [torch.randn(c, generator=gen, device=dev),
+                 torch.rand(c, generator=gen, device=dev) * 4 + 0.05,
+                 torch.randn(c, generator=gen, device=dev),
+                 torch.randn(c, generator=gen, device=dev)]
+        args = (site, *stats, cl["eps"], cd, cl["out"])
+        want = ep.bn_relu_plain(x, *args)
+        got = ep.bn_relu(x.clone(memory_format=torch.preserve_format), *args)
+        bits = torch.int16 if cl["out"] == torch.bfloat16 else torch.int32
+        check(torch.equal(got.view(bits), want.view(bits)),
+              f"bn_relu epilogue {i}: K4 differs from the plain chain")
+        del want, got
+        buf = x.clone(memory_format=torch.preserve_format)
+        ms = cuda_ms(lambda: ep.bn_relu(buf, *args))
+        plain_ms = cuda_ms(lambda: ep.bn_relu_plain(x, *args), reps=5, warmup=1)
+        n, active = site.numel(), int(site.sum())
+        bound, full = bn_relu_bound_ms(n, active, c, x.element_size(),
+                                       torch.finfo(cl["out"]).bits // 8)
+        rows.append(dict(epilogue=i, stage=si, conv=kind, shape=list(cl["shape"]),
+                         rows=n, active=active, C=c, dtype=names[cl["dtype"]],
+                         out=names[cl["out"]], in_place=cl["dtype"] == cl["out"],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_full_ms=full))
+        del x, buf
+    return rows
+
+
+def print_bn_relu(rows):
+    for r in rows:
+        print(f"bn_relu epilogue {r['epilogue']} (stage {r['stage']} {r['conv']}, "
+              f"{r['rows']} rows, {r['active']} active, C {r['C']}, {r['dtype']} -> "
+              f"{r['out']}{', in place' if r['in_place'] else ''}): equal to the plain "
+              f"chain; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms (every row read {r['bound_full_ms']:.4f})",
+              flush=True)
+    for label, sel in (("per forward", rows), ("dense stages 2-3",
+                                               [r for r in rows if r["stage"] >= 2])):
+        print(f"bn_relu {label}: kernel {sum(r['ms'] for r in sel):.3f} ms, plain "
+              f"{sum(r['plain_ms'] for r in sel):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in sel):.3f} ms (every row read "
+              f"{sum(r['bound_full_ms'] for r in sel):.3f})", flush=True)
+
+
 def print_voxel_rcnn(vr):
     """Phase 13's lines."""
     print(f"voxel_rcnn (batch {BATCH} x {POINTS} points, bf16, seeded init + one batch's BN "
@@ -1927,7 +2048,8 @@ def pvrcnn_reference_phase(dev, backend="voxel"):
         # the forward's ball queries and the ten above
         want = {} if d.type == "cpu" else {kernel: 6, f"{kernel}.fma": 6,
                                            **point_launches("pvrcnn2"),
-                                           "ball_query": BALL_QUERIES["pvrcnn2"] + 10}
+                                           "ball_query": BALL_QUERIES["pvrcnn2"] + 10,
+                                           **epilogue_launches(cfg)}
         launched = {k: n for k, n in zw.LAUNCHES.items() if n}
         check(launched == want, f"pvrcnn reference on {d.type}: launches {launched}")
         runs.append({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
@@ -1970,7 +2092,8 @@ def pvrcnn_cli_phase(shapes):
         val, data = synthetic_set(tmp, golden)
         batches = -(-len(val) // BATCH)
         want = {**launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
-                              batches), **point_launches("pvrcnn2", batches)}
+                              batches), **point_launches("pvrcnn2", batches),
+                **epilogue_launches(Config.from_yaml(str(CONFIG)), batches)}
         (table, timing), launches = counted(lambda: eval_cli.main(
             data + ["--model", "pvrcnn2", "--out-json", str(tmp / "ap.json")]), want)
         check(timing["frames"] == len(val) and (tmp / "ap.json").exists(),
@@ -2283,8 +2406,9 @@ def pvrcnn_training_cli_phase(shapes, gg_rows, gr_rows):
                      **launches_at("gather_gemm", gg_rows, "launches_per_step",
                                    torch.float32, steps)}
         batches = -(-len(val) // BATCH)
-        want_eval = launches_at("zwin_conv", shapes, "launches_per_forward",
-                                torch.float32, batches)
+        want_eval = {**launches_at("zwin_conv", shapes, "launches_per_forward",
+                                   torch.float32, batches),
+                     **epilogue_launches(Config.from_yaml(str(CONFIG)), batches)}
         for mode in PV_MODES:
             recs, launches = counted(lambda: train_cli.main(
                 data + ["--model", mode, "--batch-size", str(BATCH), "--workers", "2",
@@ -2575,10 +2699,12 @@ def train_forms_cli_phase(shapes, col_rows, names):
         column_yaml = tmp / "all_classes_column.yaml"
         column_yaml.write_text(CONFIG.read_text() + "\nSPARSE_BACKEND: column\n")
         batches = -(-len(val) // BATCH)
-        zwin_eval = launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
-                                batches)
-        col_eval = launches_at("column_conv", col_rows, "launches_per_forward",
-                               torch.float32, batches)
+        # float32: every epilogue on K4's "f32" route, whichever stages are dense
+        epilogues = epilogue_launches(Config.from_yaml(str(CONFIG)), batches)
+        zwin_eval = {**launches_at("zwin_conv", shapes, "launches_per_forward", torch.float32,
+                                   batches), **epilogues}
+        col_eval = {**launches_at("column_conv", col_rows, "launches_per_forward",
+                                  torch.float32, batches), **epilogues}
         runs = {"second_df2": (["--dense-from", "2"], data, "voxel_df2", zwin_eval, BATCH),
                 "second_column": ([], ["--config", str(column_yaml)] + data[2:],
                                   "column_df4", col_eval, BATCH),
@@ -2908,6 +3034,10 @@ def main():
           and want_col4 == {"column_conv": 14, "column_conv.fma": 1,
                             "column_conv.mma": 13},
           f"expected column launches per forward {want_col}, {want_col4}")
+    # every inference forward also ends each of its 14 convs in K4
+    want_zwin = {**want_zwin, **epilogue_launches(cfg)}
+    want_col = {**want_col, **epilogue_launches(cfg.replace(sparse_backend="column"))}
+    want_col4 = {**want_col4, **epilogue_launches(cfg.replace(dense_from_stage=4))}
     gg_rows, gr_rows = train_kernel_phase(cfg, points, num_t, dev)
     torch.cuda.empty_cache()
     e2e = end_to_end_phase(model, anchors, points, num_t, want_zwin)
@@ -3181,6 +3311,11 @@ def main():
     vr = voxel_rcnn_phase(dev)
     print_voxel_rcnn(vr)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_rows = bn_relu_phase(dev)
+    print_bn_relu(ep_rows)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -3411,6 +3546,25 @@ def main():
          # no PyTorch call samples furthest points
          "library_ms": None,
          "shapes": fps_rows},
+        {"name": "bn_relu", "route": "cuda",
+         "source": "vision3d_tpu_torch/csrc/bn_relu.cu",
+         # XLA fuses the JAX package's epilogue
+         "replaces": None,
+         "launches": e2e["launches"]["bn_relu"],
+         "launches_by_route": {r: e2e["launches"][f"bn_relu.{r}"]
+                               for r in kernels.ROUTES["bn_relu"]},
+         "launches_column_per_forward": col["launches"]["bn_relu"],
+         "launches_eval_cli_per_batch": per_batch["bn_relu"],
+         "launches_pvrcnn_per_forward": pv["launches"]["bn_relu"],
+         "launches_voxel_rcnn_per_forward": vr["launches"]["bn_relu"],
+         "launches_bench_second_per_forward": benches["bench second"][1]["bn_relu"],
+         "launches_train_per_step": train["launches"]["bn_relu"],
+         # phase 14: the cell's 14 epilogues of a forward
+         "ms": sum(r["ms"] for r in ep_rows), "plain_ms": sum(r["plain_ms"] for r in ep_rows),
+         "bound_ms": sum(r["bound_ms"] for r in ep_rows), "bound_by": "bytes",
+         # no single PyTorch call computes a masked batch norm with ReLU
+         "library_ms": None,
+         "shapes": ep_rows},
     ] + [
         {"name": f"zwin_align_{v}", "route": "cuda",
          "source": "vision3d_tpu_torch/csrc/zwin_align_gemm.cu",

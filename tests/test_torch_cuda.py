@@ -1,11 +1,12 @@
 """The port's CUDA kernels (zwin_conv, gather_gemm, gather_rows,
-column_conv, zwin_align_v1, zwin_align_v3, ball_query, voxel_query, fps) against their plain
-PyTorch versions, on the card, also inside the training autograd functions
-(SubmConvFn / DownConvFn, ColumnConvFn, DensifyFn), the column scales'
-conversions' backward, PV-RCNN's inference and training on both backends
-on the card against the CPU, and two ranks on one card against one
-process. Every test here needs a CUDA device and skips without one. This
-file imports nothing of JAX, so it also runs on a GPU host without it:
+column_conv, zwin_align_v1, zwin_align_v3, ball_query, voxel_query, fps,
+bn_relu) against their plain PyTorch versions, on the card, also inside
+the training autograd functions (SubmConvFn / DownConvFn, ColumnConvFn,
+DensifyFn), the column scales' conversions' backward, PV-RCNN's
+inference and training on both backends on the card against the CPU, and
+two ranks on one card against one process. Every test here needs a CUDA
+device and skips without one. This file imports nothing of JAX, so it
+also runs on a GPU host without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -1404,6 +1405,7 @@ def test_voxel_rcnn_card_launches_and_rows(cuda_device):
         out, _ = card.two_stage(pts, num, anchors)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["voxel_query"] == 3
+        assert kernels.LAUNCHES["bn_relu"] == kernels.LAUNCHES["bn_relu.f32"] == 12
         *_, scales = card.trunk(pts, num, need_scales=True)
         grid = vr.roi_grid_points(out["rois"], cfg.voxel_rcnn.grid_size)
         grid = grid.reshape(2, -1, 3).contiguous()
@@ -1415,3 +1417,99 @@ def test_voxel_rcnn_card_launches_and_rows(cuda_device):
                                         cfg.voxel_rcnn.pool_radius[k], cfg.voxel_rcnn.nsample)
             assert torch.equal(out["rows"][k], want)
     assert float((out["rows"][1][..., 0] >= 0).float().mean()) > 0.5
+
+
+# ------------------------------------------------------ conv epilogue (K4)
+
+_EPILOGUE_LAYOUTS = {"dense": ((2, None, 5, 33, 41), 1), "rows": ((3, 1237, None), -1),
+                     "columns": ((2, 301, 7, None), -1)}
+_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _epilogue_case(dev, layout, dtype, c, seed):
+    """A conv output in ``layout`` (a channels-last-3d volume, (B, N, C) or
+    (B, Ncol, D, C) rows; row counts 13,530, 3,711 and 4,214, none a
+    multiple of a block's rows), half its sites masked off, and statistics
+    whose weights are half negative, so that about half the active
+    pre-activations are below 0."""
+    rng = np.random.default_rng(seed)
+    shape, channel_dim = _EPILOGUE_LAYOUTS[layout]
+    shape = tuple(c if n is None else n for n in shape)
+    x = torch.from_numpy(3 * rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+    if layout == "dense":
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    site_shape = [n for i, n in enumerate(shape) if i != channel_dim % len(shape)]
+    site = torch.from_numpy(rng.uniform(size=site_shape) < 0.5).to(dev)
+    stats = [rng.normal(size=c), rng.uniform(0.05, 4, size=c), rng.normal(size=c),
+             rng.normal(size=c)]
+    return x, site, [torch.from_numpy(s.astype(np.float32)).to(dev) for s in stats], channel_dim
+
+
+@pytest.mark.parametrize("c", [16, 64, 128])
+@pytest.mark.parametrize("dtypes", [("bf16", "bf16"), ("f32", "bf16"), ("f32", "f32")])
+@pytest.mark.parametrize("layout", list(_EPILOGUE_LAYOUTS))
+def test_bn_relu_kernel_matches_plain(layout, dtypes, c, cuda_device):
+    """K4 against ``bn_relu_plain`` on the same card tensors, bit for bit:
+    written over its input where the dtypes agree, into a new tensor of the
+    input's strides otherwise; one launch, on the input dtype's route."""
+    from vision3d_tpu_torch.ops import bn_relu as ep
+
+    din, dout = (_DT[d] for d in dtypes)
+    x, site, stats, cd = _epilogue_case(cuda_device, layout, din, c, c + len(layout))
+    want = ep.bn_relu_plain(x, site, *stats, 1e-3, cd, dout)
+    counts = ("bn_relu", f"bn_relu.{dtypes[0]}")
+    before = [ep.LAUNCHES[k] for k in counts]
+    inp = x.clone(memory_format=torch.preserve_format)
+    got = ep.bn_relu(inp, site, *stats, 1e-3, cd, dout)
+    torch.cuda.synchronize()
+    assert [ep.LAUNCHES[k] for k in counts] == [n + 1 for n in before]
+    assert (got.data_ptr() == inp.data_ptr()) == (din == dout)
+    assert got.dtype == dout and got.shape == x.shape and got.stride() == x.stride()
+    bits = torch.int16 if dout == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    active = site.unsqueeze(cd).expand_as(want)
+    assert bool((want[~active] == 0).all())
+    assert 0.2 < float((want[active] == 0).float().mean()) < 0.8   # ReLU cuts about half
+
+
+def test_bn_relu_kernel_rejects_bad_input(cuda_device):
+    from vision3d_tpu_torch.ops import bn_relu as ep
+
+    x, site, stats, _ = _epilogue_case(cuda_device, "rows", torch.bfloat16, 16, 0)
+    with pytest.raises(ValueError):     # 12 bf16 channels: no whole 16-byte load
+        ep.bn_relu(x[..., :12].contiguous(), site, *[s[:12] for s in stats], 1e-3)
+    with pytest.raises(ValueError):     # channels not last in memory
+        ep.bn_relu(x.transpose(1, 2).contiguous(), site, *stats, 1e-3, 1)
+    with pytest.raises(ValueError):
+        ep.bn_relu(x, site[:, 1:], *stats, 1e-3)
+    with pytest.raises(ValueError):
+        ep.bn_relu(x, site, *[s.double() for s in stats], 1e-3)
+    with pytest.raises(TypeError):
+        ep.bn_relu(x.half(), site, *stats, 1e-3)
+    with pytest.raises(RuntimeError):   # no backward
+        ep.bn_relu(x.float().requires_grad_(), site, *stats, 1e-3)
+
+
+def test_bn_relu_launches_per_forward_and_step(cuda_device):
+    """K4 ends every conv of the middle extractor in inference: 14 launches
+    a SECOND forward and a PV-RCNN forward (10 submanifold + 4 strided
+    convs; float32 here, so all on the "f32" route), none in a training
+    step, whose epilogue takes the batch's statistics in PyTorch."""
+    from vision3d_tpu_torch import kernels
+    from vision3d_tpu_torch.synthetic import kitti_like_train_batch
+    from vision3d_tpu_torch.training.train import create_train_state, make_train_step
+
+    launched, chip_smoke = _point_launches(cuda_device)
+    assert {k: (v["bn_relu"], v["bn_relu.f32"], v["bn_relu.bf16"])
+            for k, v in launched.items()} == {
+        "pvrcnn2": (14, 14, 0), "pvrcnn_bev": (14, 14, 0), "second": (14, 14, 0)}
+    cfg = chip_smoke.small_geometry_cfg()
+    b = kitti_like_train_batch(1, 2, 60000, max_gt=8, cfg=cfg)
+    b["points"], b["num_points"] = chip_smoke.crop_to_grid(cfg, b["points"])
+    model, tx, state = create_train_state(cfg, steps_per_epoch=10, device=cuda_device)
+    step = make_train_step(model, tx, cfg)
+    kernels.reset_launches()
+    state, losses = step(state, {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_relu"] == 0 and kernels.LAUNCHES["gather_gemm"] > 0
+    assert all(np.isfinite(float(v)) for v in losses.values())

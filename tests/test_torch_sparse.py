@@ -221,3 +221,50 @@ def test_conv_outputs_are_freed_before_the_relu(tiny_cfg, backend, monkeypatch):
     with torch.no_grad():
         tscnn.SpMiddleFHD(cfg).eval()(st)
     assert len(alive) == 14 and made and not any(alive), alive
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["dense", "rows", "columns"])
+def test_epilogue_on_compute_dtype_equals_float32_chain(layout, dtype, mode):
+    """``bn_relu`` on a conv output in the compute dtype (the dense stages'
+    cuDNN output, no longer cast to float32 by ``_dense_conv``) equals the
+    chain it replaced bit for bit: the output upcast to float32, then
+    ``MaskedBatchNorm``, ReLU, the site mask and the cast; in training with
+    the same running statistics after. In eval mode ``ops/bn_relu.bn_relu``
+    (on the CPU ``bn_relu_plain``, kernel K4's reference) gives those bits
+    too."""
+    from vision3d_tpu_torch.ops import bn_relu as epilogue
+
+    rng = np.random.default_rng(7)
+    c = 16
+    shape, channel_dim = {"dense": ((2, c, 3, 4, 5), 1), "rows": ((2, 37, c), -1),
+                          "columns": ((2, 9, 5, c), -1)}[layout]
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    if layout == "dense":
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+    site_shape = [n for i, n in enumerate(shape) if i != channel_dim % len(shape)]
+    site = torch.from_numpy(rng.uniform(size=site_shape) < 0.6)
+    bns = []
+    for _ in range(2):
+        bn = tscnn.MaskedBatchNorm(c).train(mode == "train")
+        with torch.no_grad():
+            bn.running_mean.copy_(_t(rng.normal(size=c).astype(np.float32)))
+            bn.running_var.copy_(_t(rng.uniform(0.1, 3, size=c).astype(np.float32)))
+            bn.weight.copy_(_t(rng.normal(size=c).astype(np.float32)))
+            bn.bias.copy_(_t(rng.normal(size=c).astype(np.float32)))
+        bns.append(bn)
+    bns[1].load_state_dict(bns[0].state_dict())
+    m = site.unsqueeze(channel_dim)
+    with torch.no_grad():
+        want = torch.where(m, torch.nn.functional.relu(bns[1](x.float(), site, channel_dim)),
+                           0.0).to(dtype)
+        got = tscnn.bn_relu(bns[0], x.clone(), site, channel_dim, dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == dtype and torch.equal(got.view(bits), want.view(bits))
+    for a, b in zip(bns[0].state_dict().values(), bns[1].state_dict().values()):
+        assert torch.equal(a, b)
+    if mode == "eval":
+        plain = epilogue.bn_relu(x, site, bns[0].running_mean, bns[0].running_var,
+                                 bns[0].weight, bns[0].bias, bns[0].eps, channel_dim, dtype)
+        assert torch.equal(plain.view(bits), want.view(bits))

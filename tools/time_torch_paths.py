@@ -33,7 +33,8 @@ def time_paths():
     points, num_t = torch.from_numpy(pts).to(dev), torch.from_numpy(num).to(dev)
     sd = cs.convert.state_dict_from_flax(cs.convert.load_npz(cs.WEIGHTS))
     model, anchors = cs.create_second(cfg, device=dev, state_dict=sd)
-    want = {"zwin_conv": 6, "zwin_conv.fma": 1, "zwin_conv.mma": 5}
+    want = {"zwin_conv": 6, "zwin_conv.fma": 1, "zwin_conv.mma": 5,
+            **cs.epilogue_launches(cfg)}
     e2e = cs.end_to_end_phase(model, anchors, points, num_t, want)
     del model
     torch.cuda.empty_cache()

@@ -28,7 +28,8 @@ PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("zwin_conv", "gather_gemm", "gather_rows", "column_conv",
-           "zwin_align_v1", "zwin_align_v3", "ball_query", "voxel_query", "fps")
+           "zwin_align_v1", "zwin_align_v3", "ball_query", "voxel_query", "fps",
+           "bn_relu")
 SOURCES = {"zwin_align_v1": "zwin_align_gemm", "zwin_align_v3": "zwin_align_gemm"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # route names in the order of the entry point's route argument
 ROUTES = {"gather_gemm": ("fma", "mma"), "zwin_conv": ("fma", "mma"),
           "column_conv": ("fma", "mma"), "zwin_align_v1": ("fma", "mma"),
-          "zwin_align_v3": ("fma", "mma"), "fps": ("reg", "smem", "global")}
+          "zwin_align_v3": ("fma", "mma"), "fps": ("reg", "smem", "global"),
+          "bn_relu": ("f32", "bf16")}
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}.{r}": 0 for name, routes in ROUTES.items() for r in routes})

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision3d_tpu_torch.config import Config
+from vision3d_tpu_torch.ops import bn_relu as epilogue
 from vision3d_tpu_torch.ops import column_sparse as csp
 from vision3d_tpu_torch.ops import sparse as sp
 from vision3d_tpu_torch.ops.column_conv import ColumnConvFn
@@ -389,10 +390,10 @@ def dense_dilate_occ(occ, kernel, stride, pad):
 def _dense_conv(x, weight, kernel, stride, pad, cdt):
     """conv3d (cross-correlation, as JAX's conv_general_dilated) in the
     compute dtype, the (K*Cin, Cout) weight read as (Cout, Cin, kz, ky, kx);
-    the result is returned as float32."""
+    the result stays in the compute dtype (``bn_relu`` reads it as is)."""
     wk = weight.reshape(*kernel, -1, weight.shape[1]).permute(4, 3, 0, 1, 2)
     wk = wk.to(cdt).contiguous(memory_format=torch.channels_last_3d)
-    return F.conv3d(x.to(cdt), wk, stride=stride, padding=pad).float()
+    return F.conv3d(x.to(cdt), wk, stride=stride, padding=pad)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -439,15 +440,23 @@ class MaskedBatchNorm(nn.Module):
 def bn_relu(bn: MaskedBatchNorm, x, site, channel_dim=-1, dtype=torch.float32,
             one_pass=False):
     """Every conv's epilogue: masked batch norm, ReLU, zero off the active
-    ``site``s, rounded to ``dtype``. ``x``, the float32 pre-activation, is
-    dropped after the batch norm: passed as a temporary, a dense stage's is
-    freed before the ReLU pass. Training statistics are ``MaskedBatchNorm``'s,
-    or with ``one_pass`` (columns, channels last) ``MaskedBatchNormFlat``'s
-    (vision3d_tpu/models/sparse_cnn.py:443-453): masked mean (count clamped
-    to 1), variance max(E[x^2] - mean^2, 0), both also the running update's,
-    then x * g + (bias - mean * g), g = weight / sqrt(var + eps); under a
-    process group the two sums and the count are global (one all-reduce)."""
+    ``site``s, rounded to ``dtype``, on the pre-activation ``x`` (float32,
+    or a dense stage's compute dtype), read as float32. In eval mode on the
+    card it is kernel K4 (``ops/bn_relu.bn_relu``: one pass, over ``x`` in
+    place where its dtype is ``dtype``; the same bits as the chain below).
+    Otherwise ``x`` is dropped after the batch norm: passed as a temporary,
+    a dense stage's is freed before the ReLU pass. Training statistics are
+    ``MaskedBatchNorm``'s, or with ``one_pass`` (columns, channels last)
+    ``MaskedBatchNormFlat``'s (vision3d_tpu/models/sparse_cnn.py:443-453):
+    masked mean (count clamped to 1), variance max(E[x^2] - mean^2, 0), both
+    also the running update's, then x * g + (bias - mean * g), g = weight /
+    sqrt(var + eps); under a process group the two sums and the count are
+    global (one all-reduce)."""
+    if not bn.training and x.device.type == "cuda":
+        return epilogue.bn_relu(x, site, bn.running_mean, bn.running_var, bn.weight,
+                                bn.bias, bn.eps, channel_dim, dtype)
     m = site.unsqueeze(channel_dim)
+    x = x.float()
     if one_pass and bn.training:
         w = m.to(x.dtype)
         xm = x * w
